@@ -5,15 +5,30 @@
 Phases, each of which must pass (the script exits non-zero on any failure):
 
 1. the card: name and power limit;
-2. build the CUDA kernels from ``weed_instance_segmentation_tpu_torch/csrc``
-   (into the package's ``build/`` directory, on first use);
-3. the post-process kernel against its plain PyTorch version at the serving
-   shape, (4, 200, 200, 200) f32 logits → 384², with both times;
-4. the serving slice: Swin-L Mask2Former, 800², batch 4, bf16, random seeded
-   weights; 3 requests of uint8 (4, 1024, 1024, 3) through
-   ``make_serving_fn``; every request must launch the kernel;
-5. the same serving function at tiny-test in float32 on the card against the
-   same model on the CPU (the plain path).
+2. build the three CUDA libraries from ``weed_instance_segmentation_tpu_torch/
+   csrc`` (one ``nvcc`` each, started together, into the package's ``build/``);
+3. each kernel against its plain PyTorch version, with times (CUDA events,
+   medians, in turns with the plain version and one PyTorch library call):
+   the post-process kernel at the serving shape; window attention forward
+   and backward at Swin-L stage 1, training batch 2 (NW 578, H 6, T 144,
+   D 32), with and without the shift mask, f32 and bf16; masked attention
+   forward and backward at B 2, H 8, Q 200, D 32, S in {10000, 2500, 625};
+4. serving: Swin-L Mask2Former, 800², batch 4, bf16, random seeded weights;
+   3 requests of uint8 (4, 1024, 1024, 3) through ``make_serving_fn``; each
+   must launch 24 window-attention, 9 masked-attention and 1 post-process
+   forward kernels;
+5. training: Swin-L 800² batch 2, bf16 autocast over float32 parameters,
+   gradient accumulation 2, remat, AdamW lr 5e-5, fed from a synthetic
+   ``.npz`` cache through ``PreprocessedDataset`` → ``make_train_collate`` →
+   ``DataLoader`` → the card; 2 warm-up and 6 timed micro-steps, each with a
+   finite loss that launches both attention kernels forward and backward,
+   parameters untouched on accumulation-only steps and changed on updates;
+   then a ``torch.profiler`` trace of two more: the device's idle share,
+   device time by kernel, and the split into the train step's own ranges
+   (forward, criterion with the host matching, backward, optimizer);
+6. tiny-test in float32 on the card against the same model on the CPU (the
+   plain path): the serving function, and one train step with the same
+   random draws.
 
 The last lines are a JSON summary of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -21,30 +36,63 @@ limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
 import copy
+import functools
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from weed_instance_segmentation_tpu_torch.datasets.dataset_utils import (
+    TRAIN_SAMPLE_KEYS, PreprocessedDataset, make_train_collate, process_and_save,
+)
+from weed_instance_segmentation_tpu_torch.datasets.loader import DataLoader, device_batches, to_device
 from weed_instance_segmentation_tpu_torch.engine.export import make_serving_fn
 from weed_instance_segmentation_tpu_torch.engine.model_utils import build_model
-from weed_instance_segmentation_tpu_torch.ops.cuda_build import build_log, load_library
+from weed_instance_segmentation_tpu_torch.engine.steps import make_optimizer, make_train_step
+from weed_instance_segmentation_tpu_torch.losses.criterion import PointDraws
+from weed_instance_segmentation_tpu_torch.models.swin import shifted_window_attn_mask
+from weed_instance_segmentation_tpu_torch.ops.cuda_build import build_libraries, build_log
+from weed_instance_segmentation_tpu_torch.ops.masked_attention import (
+    masked_attention, masked_attention_plain,
+)
 from weed_instance_segmentation_tpu_torch.ops.postprocess_kernel import (
     fused_upsample_stats, fused_upsample_stats_plain, upsample_plain,
 )
 from weed_instance_segmentation_tpu_torch.ops.resize import nearest_indices
+from weed_instance_segmentation_tpu_torch.ops.window_attention import (
+    window_attention, window_attention_plain,
+)
 from weed_instance_segmentation_tpu_torch.processing.fused import fused_preprocess
 from weed_instance_segmentation_tpu_torch.processing.postprocess import SCORE_RESOLUTION
 
-KERNEL_SOURCE = 'weed_instance_segmentation_tpu_torch/csrc/postprocess_stats.cu'
-KERNEL_REPLACES = 'weed_instance_segmentation_tpu/ops/postprocess_kernel.py:88'
+LIBRARIES = ('postprocess_stats', 'window_attention', 'masked_attention')
+CSRC = 'weed_instance_segmentation_tpu_torch/csrc/'
+KERNELS = {  # name → (source, the TPU kernel it replaces)
+    'fused_upsample_stats': (CSRC + 'postprocess_stats.cu',
+                             'weed_instance_segmentation_tpu/ops/postprocess_kernel.py:88'),
+    'window_attention_fwd': (CSRC + 'window_attention.cu', 'tools/ab_window_attn.py:52'),
+    'window_attention_bwd': (CSRC + 'window_attention.cu', 'tools/ab_window_attn.py:52'),
+    'masked_attention_fwd': (CSRC + 'masked_attention.cu', 'tools/ab_masked_attn.py:71'),
+    'masked_attention_bwd': (CSRC + 'masked_attention.cu', 'tools/ab_masked_attn.py:71'),
+}
 SERVING_BATCH, SERVING_IN, SERVING_HW, REQUESTS = 4, 1024, 800, 3
+TRAIN_BATCH, TRAIN_HW, TRAIN_INSTANCES, TRAIN_LABELS = 2, 800, 10, 5
+WARMUP_STEPS, TIMED_STEPS, ACCUMULATION, LEARNING_RATE = 2, 6, 2, 5e-5
+STEP_RANGES = ('forward', 'criterion', 'backward', 'optimizer')  # engine/steps.py
 TIMED_RUNS = 25
+# H100 SXM published peaks (dense): HBM bytes/s and FLOP/s by input type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
 def log(msg: str) -> None:
@@ -71,7 +119,43 @@ def time_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def phase_kernel(dev: torch.device) -> dict:
+def timed_in_turns(fns: dict, runs: int = TIMED_RUNS) -> dict:
+    """Median ms of each function, after 3 warm-up calls each, the functions
+    called in turns (order rotated every run)."""
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    times = {name: [] for name in fns}
+    names = list(fns)
+    for r in range(runs):
+        for name in names[r % len(names):] + names[:r % len(names)]:
+            times[name].append(time_ms(fns[name]))
+    return {name: statistics.median(ts) for name, ts in times.items()}
+
+
+def bound(bytes_moved: float, flops: float, dtype: torch.dtype) -> dict:
+    """The least time the card could take: bytes over the HBM rate or
+    operations over the peak for the input type, whichever is larger."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return {'bound_ms': 1e3 * max(t_bytes, t_ops),
+            'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
+
+
+def reset_counts() -> None:
+    fused_upsample_stats.launches = 0
+    for op in (window_attention, masked_attention):
+        op.launches = op.backward_launches = 0
+
+
+def counts() -> dict:
+    return {'fused_upsample_stats': fused_upsample_stats.launches,
+            'window_attention_fwd': window_attention.launches,
+            'window_attention_bwd': window_attention.backward_launches,
+            'masked_attention_fwd': masked_attention.launches,
+            'masked_attention_bwd': masked_attention.backward_launches}
+
+
+def phase_postprocess_kernel(dev: torch.device) -> dict:
     """Kernel vs plain version at the serving shape."""
     b, q, hm, wm = SERVING_BATCH, 200, SERVING_HW // 4, SERVING_HW // 4
     g = torch.Generator(device=dev).manual_seed(0)
@@ -92,23 +176,163 @@ def phase_kernel(dev: torch.device) -> dict:
     p_sig_adj = p_sig + (delta * torch.sigmoid(up)).sum(dim=(-1, -2))
     err = (sig - p_sig_adj).abs()
     check(bool((err <= 1e-5 * p_sig_adj.abs()).all()), 'sig_sum beyond rtol 1e-5')
-    log(f'kernel vs plain at {tuple(logits.shape)} -> {SCORE_RESOLUTION}: '
+    log(f'post-process kernel vs plain at {tuple(logits.shape)} -> {SCORE_RESOLUTION}: '
         f'{n_flips} bin flips at zero crossings, sig_sum max abs err {err.max().item():.3e} '
         f'(max rel {(err / p_sig_adj.abs()).max().item():.3e}), pos_cnt exact after flips')
     del up, p_bins, bins, delta
 
-    kernel_ms, plain_ms = [], []
-    for _ in range(3):  # warm up both
-        fused_upsample_stats(logits, SCORE_RESOLUTION)
-        fused_upsample_stats_plain(logits, SCORE_RESOLUTION)
-    for _ in range(TIMED_RUNS):  # in turns: plain, kernel
-        plain_ms.append(time_ms(lambda: fused_upsample_stats_plain(logits, SCORE_RESOLUTION)))
-        kernel_ms.append(time_ms(lambda: fused_upsample_stats(logits, SCORE_RESOLUTION)))
-    k, p = statistics.median(kernel_ms), statistics.median(plain_ms)
-    moved = logits.numel() * 4 + b * q * SCORE_RESOLUTION[0] * SCORE_RESOLUTION[1]
-    log(f'kernel {k:.4f} ms, plain {p:.4f} ms (medians of {TIMED_RUNS} runs each, CUDA events); '
-        f'kernel moves {moved / 1e6:.1f} MB = {moved / k / 1e6:.1f} GB/s')
-    return {'max_abs_err': err.max().item(), 'ms': k, 'plain_ms': p}
+    t = timed_in_turns({'plain': lambda: fused_upsample_stats_plain(logits, SCORE_RESOLUTION),
+                        'kernel': lambda: fused_upsample_stats(logits, SCORE_RESOLUTION)})
+    out_px = b * q * SCORE_RESOLUTION[0] * SCORE_RESOLUTION[1]
+    moved = logits.numel() * 4 + out_px + 2 * b * q * 4
+    log(f'post-process kernel {t["kernel"]:.4f} ms, plain {t["plain"]:.4f} ms (medians of '
+        f'{TIMED_RUNS}); moves {moved / 1e6:.1f} MB = {moved / t["kernel"] / 1e6:.1f} GB/s')
+    # 4 taps x 2 flops per output pixel, plus the sigmoid and the sums
+    return {'max_abs_err': err.max().item(), 'ms': t['kernel'], 'plain_ms': t['plain'],
+            **bound(moved, 12 * out_px, torch.float32), 'library_ms': None}
+
+
+def _rel_errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    err = (got.float() - want).abs().max().item()
+    return err, err / max(want.abs().max().item(), 1e-30)
+
+
+def _check_against_plain(name, kernel, plain, qkv, extra, grad_extra, consts, dtype, tol):
+    """Kernel and plain version under autograd on the same values (q/k/v in
+    ``dtype``; the plain version computes in f32): forward output and every
+    gradient within ``tol`` of the plain result's largest magnitude. Returns
+    (output max abs err, gradients max abs err)."""
+    ins = [t.detach().clone().to(dtype).requires_grad_(True) for t in qkv] + \
+        [t.clone().requires_grad_(grad_extra) for t in extra]
+    ref = [t.detach().float().requires_grad_(t.requires_grad) for t in ins]
+    out = kernel(*ins, *consts)
+    want = plain(*ref, *consts)
+    cot = torch.randn(out.shape, generator=torch.Generator(device=out.device).manual_seed(9),
+                      device=out.device).to(dtype)
+    out.backward(cot)
+    want.backward(cot.float())
+    torch.cuda.synchronize()
+    out_err = _rel_errors(out, want)
+    grad_errs = [_rel_errors(a.grad, b.grad) for a, b in zip(ins, ref) if a.requires_grad]
+    worst = max([out_err[1]] + [e[1] for e in grad_errs])
+    log(f'  {name} {str(dtype)[6:]}: out rel err {out_err[1]:.2e}, grads rel err '
+        f'{", ".join(f"{e[1]:.2e}" for e in grad_errs)} (tolerance {tol:g})')
+    check(worst <= tol, f'{name} {dtype}: {worst:.3e} beyond {tol}')
+    return out_err[0], max(e[0] for e in grad_errs)
+
+
+def _time_fwd_bwd(kernel, plain, library, inputs, consts, lib_args) -> dict:
+    """Median ms of the forward and of the backward (``autograd.grad`` over a
+    kept graph, gradients of every tensor in ``inputs``) for the kernel, the
+    plain version and the library call (on q, k, v only, with ``lib_args``)."""
+    def backward(fn, args):
+        ins = [t.detach().requires_grad_(True) for t in args]
+        out = fn(*ins)
+        cot = torch.randn_like(out)
+        return lambda: torch.autograd.grad(out, ins, cot, retain_graph=True)
+
+    fns = {'plain': lambda *a: plain(*a, *consts), 'kernel': lambda *a: kernel(*a, *consts)}
+    lib = lambda q_, k_, v_: library(q_, k_, v_, *lib_args)  # noqa: E731
+    fwd = timed_in_turns({**{n: functools.partial(f, *inputs) for n, f in fns.items()},
+                          'library': functools.partial(lib, *inputs[:3])})
+    bwd = timed_in_turns({**{n: backward(f, inputs) for n, f in fns.items()},
+                          'library': backward(lib, inputs[:3])})
+    return {'fwd': fwd, 'bwd': bwd}
+
+
+def _sdpa(scale):
+    def call(q, k, v, attn_mask):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, scale=scale)
+    return call
+
+
+def phase_window_attention(dev: torch.device) -> dict:
+    """Swin-L stage 1 at training batch 2: 2 x 17 x 17 windows of 12 x 12."""
+    images, hp, ws, heads, d = TRAIN_BATCH, 204, 12, 6, 32
+    t = ws * ws
+    nw = images * (hp // ws) ** 2
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn((nw, heads, t, d), generator=g, device=dev) for _ in range(3))
+    bias = torch.randn((heads, t, t), generator=g, device=dev)
+    mask = torch.from_numpy(shifted_window_attn_mask(hp, hp, ws, ws // 2)).to(dev)
+    log(f'window attention vs plain at NW={nw}, H={heads}, T={t}, D={d}:')
+    errs = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        for m in (None, mask):
+            errs[dtype, m is not None] = _check_against_plain(
+                'shifted' if m is not None else 'unshifted', window_attention,
+                window_attention_plain, (q, k, v), (bias,), True, (m,), dtype, tol)
+
+    # timed at the training path's type, with the shift mask
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    full_mask = (bias[None] + mask.repeat(images, 1, 1)[:, None]).to(torch.bfloat16)
+    t_ms = _time_fwd_bwd(window_attention, window_attention_plain, _sdpa(None),
+                         [qb, kb, vb, bias], (mask,), (full_mask,))
+    qkv_bytes = nw * heads * t * d * 2
+    const_bytes = (heads + mask.shape[0]) * t * t * 4
+    lse_bytes = nw * heads * t * 4
+    pair_flops = nw * heads * t * t * d
+    fwd_bound = bound(4 * qkv_bytes + const_bytes + lse_bytes, 4 * pair_flops, torch.bfloat16)
+    bwd_bound = bound(8 * qkv_bytes + const_bytes + lse_bytes + heads * t * t * 4,
+                      10 * pair_flops, torch.bfloat16)
+    for phase in ('fwd', 'bwd'):
+        tt = t_ms[phase]
+        b_ = fwd_bound if phase == 'fwd' else bwd_bound
+        log(f'  {phase} bf16 shifted: kernel {tt["kernel"]:.4f} ms, plain {tt["plain"]:.4f} ms, '
+            f'SDPA {tt["library"]:.4f} ms, bound {b_["bound_ms"]:.4f} ms ({b_["bound_by"]})')
+    err_fwd, err_bwd = errs[torch.bfloat16, True]
+    return {
+        'window_attention_fwd': {'max_abs_err': err_fwd, 'ms': t_ms['fwd']['kernel'],
+                                 'plain_ms': t_ms['fwd']['plain'], **fwd_bound,
+                                 'library_ms': t_ms['fwd']['library']},
+        'window_attention_bwd': {'max_abs_err': err_bwd, 'ms': t_ms['bwd']['kernel'],
+                                 'plain_ms': t_ms['bwd']['plain'], **bwd_bound,
+                                 'library_ms': t_ms['bwd']['library']},
+    }
+
+
+def phase_masked_attention(dev: torch.device) -> dict:
+    """Decoder cross-attention at B 2, H 8, Q 200, D 32 for the three levels."""
+    b, heads, nq, d = TRAIN_BATCH, 8, 200, 32
+    result = {}
+    for s in (10000, 2500, 625):
+        g = torch.Generator(device=dev).manual_seed(s)
+        q = torch.randn((b, heads, nq, d), generator=g, device=dev) * d ** -0.5
+        k, v = (torch.randn((b, heads, s, d), generator=g, device=dev) for _ in range(2))
+        mask = torch.rand((b, 1, nq, s), generator=g, device=dev) < 0.7
+        mask &= ~mask.all(dim=-1, keepdim=True)
+        log(f'masked attention vs plain at B={b}, H={heads}, Q={nq}, S={s}, D={d}, '
+            f'{mask.float().mean().item():.3f} masked:')
+        errs = {dtype: _check_against_plain('masked', masked_attention, masked_attention_plain,
+                                            (q, k, v), (), False, (mask,), dtype, tol)
+                for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))}
+        qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+        bias = torch.zeros(mask.shape, dtype=torch.bfloat16, device=dev).masked_fill_(mask, -1e9)
+        t_ms = _time_fwd_bwd(masked_attention, masked_attention_plain, _sdpa(1.0),
+                             [qb, kb, vb], (mask,), (bias,))
+        q_bytes, kv_bytes = b * heads * nq * d * 2, b * heads * s * d * 2
+        mask_bytes, lse_bytes = b * nq * s, b * heads * nq * 4
+        pair_flops = b * heads * nq * s * d
+        fwd_bound = bound(2 * q_bytes + 2 * kv_bytes + mask_bytes + lse_bytes, 4 * pair_flops,
+                          torch.bfloat16)
+        bwd_bound = bound(4 * q_bytes + 4 * kv_bytes + mask_bytes + lse_bytes, 10 * pair_flops,
+                          torch.bfloat16)
+        for phase, b_ in (('fwd', fwd_bound), ('bwd', bwd_bound)):
+            tt = t_ms[phase]
+            log(f'  {phase} bf16 S={s}: kernel {tt["kernel"]:.4f} ms, plain {tt["plain"]:.4f} ms, '
+                f'SDPA {tt["library"]:.4f} ms, bound {b_["bound_ms"]:.4f} ms ({b_["bound_by"]})')
+        if s == 10000:  # the summary line reports the largest level
+            result = {
+                'masked_attention_fwd': {'max_abs_err': errs[torch.bfloat16][0],
+                                         'ms': t_ms['fwd']['kernel'],
+                                         'plain_ms': t_ms['fwd']['plain'], **fwd_bound,
+                                         'library_ms': t_ms['fwd']['library']},
+                'masked_attention_bwd': {'max_abs_err': errs[torch.bfloat16][1],
+                                         'ms': t_ms['bwd']['kernel'],
+                                         'plain_ms': t_ms['bwd']['plain'], **bwd_bound,
+                                         'library_ms': t_ms['bwd']['library']},
+            }
+    return result
 
 
 def check_result(res: dict, batch: int, hw: tuple, num_queries: int) -> None:
@@ -123,7 +347,7 @@ def check_result(res: dict, batch: int, hw: tuple, num_queries: int) -> None:
     check(int(seg.min()) >= -1 and int(seg.max()) < num_queries, 'id map outside [-1, Q)')
 
 
-def phase_serving(dev: torch.device) -> int:
+def phase_serving(dev: torch.device) -> dict:
     """Swin-L 800² b4 bf16: 3 requests through the serving function."""
     t0 = time.perf_counter()
     model = build_model('swin-large', num_labels=5, dtype=torch.bfloat16, device=dev, seed=0)
@@ -141,33 +365,196 @@ def phase_serving(dev: torch.device) -> int:
     torch.cuda.synchronize()
     log(f'warm-up request: {1e3 * (time.perf_counter() - t0):.1f} ms (first call, lazy init)')
 
+    cfg = model.config
+    per_request = {'fused_upsample_stats': 1, 'window_attention_fwd': sum(cfg.backbone_config.depths),
+                   'masked_attention_fwd': cfg.decoder_layers - 1}
     torch.cuda.reset_peak_memory_stats(dev)
-    fused_upsample_stats.launches = 0
+    reset_counts()
     latencies = []
     for i, raw in enumerate(requests[1:]):
-        before = fused_upsample_stats.launches
+        before = counts()
         t0 = time.perf_counter()
         res = serve(raw)
         torch.cuda.synchronize()
         latencies.append(time.perf_counter() - t0)
-        check(fused_upsample_stats.launches > before, f'request {i} did not launch the kernel')
-        check_result(res, SERVING_BATCH, (SERVING_HW, SERVING_HW), model.config.num_queries)
-        log(f'request {i}: {1e3 * latencies[-1]:.1f} ms, '
-            f'{int(res["valid"].sum())} segments kept')
-    launches = fused_upsample_stats.launches
+        launched = {k: v - before[k] for k, v in counts().items()}
+        for name, n in per_request.items():
+            check(launched[name] == n, f'request {i} launched {name} {launched[name]} times, '
+                                       f'not {n}')
+        check(launched['window_attention_bwd'] == launched['masked_attention_bwd'] == 0,
+              'serving launched a backward kernel')
+        check_result(res, SERVING_BATCH, (SERVING_HW, SERVING_HW), cfg.num_queries)
+        log(f'request {i}: {1e3 * latencies[-1]:.1f} ms, {int(res["valid"].sum())} segments kept')
+    launches = counts()
     log(f'serving swin-large {SERVING_HW}x{SERVING_HW} b{SERVING_BATCH} bf16: '
         f'{REQUESTS * SERVING_BATCH / sum(latencies):.3f} img/s over {REQUESTS} requests, '
         f'median latency {1e3 * statistics.median(latencies):.1f} ms, '
-        f'peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, '
-        f'kernel launches {launches}')
+        f'peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches {launches}')
+    del model, serve, requests
+    torch.cuda.empty_cache()
     return launches
 
 
+class _SynthRaw:
+    """bench.py's synthetic training samples: 800² float pixels, 10 instances
+    of 64 x 64 squares, 5 labels; 8 geometries cycled over distinct files."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        r = np.random.default_rng(i % 8)
+        masks = np.zeros((TRAIN_INSTANCES, TRAIN_HW, TRAIN_HW), np.uint8)
+        for j in range(TRAIN_INSTANCES):
+            y, x = r.integers(0, TRAIN_HW - 64, size=2)
+            masks[j, y:y + 64, x:x + 64] = 1
+        return {'pixel_values': r.standard_normal((3, TRAIN_HW, TRAIN_HW)).astype(np.float32),
+                'mask_labels': masks,
+                'class_labels': r.integers(0, TRAIN_LABELS, size=(TRAIN_INSTANCES,)),
+                'target_size': (TRAIN_HW, TRAIN_HW),
+                'original_map': np.zeros((TRAIN_HW, TRAIN_HW), np.int32),
+                'id_to_semantic': {j + 1: 0 for j in range(TRAIN_INSTANCES)},
+                'file_name': f'synth_{i:04d}.png'}
+
+
+def _snapshot(model) -> list:
+    return [p.detach().clone() for p in model.parameters()]
+
+
+def _unchanged(model, snapshot) -> bool:
+    return all(torch.equal(p, s) for p, s in zip(model.parameters(), snapshot))
+
+
+def trace_split(trace: dict) -> tuple[dict, dict, collections.Counter]:
+    """From a profiler's Chrome trace of train steps: the device-busy ms of
+    the work launched in each of the step's ranges (``engine/steps.py``: a
+    kernel, copy or fill counts in the range whose host interval holds its
+    launch call; ``other`` if none does), the host ms spent in each range, and
+    the device ms by kernel name."""
+    events = [e for e in trace['traceEvents'] if e.get('ph') == 'X']
+    ranges = [(e['ts'], e['ts'] + e['dur'], e['name']) for e in events
+              if e.get('cat') == 'user_annotation' and e['name'] in STEP_RANGES]
+    launched_at = {e['args']['correlation']: e['ts'] for e in events
+                   if e.get('cat') in ('cuda_runtime', 'cuda_driver')
+                   and 'correlation' in e.get('args', {})}
+    device_ms = dict.fromkeys(STEP_RANGES + ('other',), 0.0)
+    by_kernel = collections.Counter()
+    for e in events:
+        if e.get('cat') not in ('kernel', 'gpu_memcpy', 'gpu_memset'):
+            continue
+        ts = launched_at.get(e.get('args', {}).get('correlation'))
+        name = next((n for a, b, n in ranges if ts is not None and a <= ts <= b), 'other')
+        device_ms[name] += e['dur'] / 1e3
+        by_kernel[e['name']] += e['dur'] / 1e3
+    host_ms = {n: sum(b - a for a, b, m in ranges if m == n) / 1e3 for n in STEP_RANGES}
+    return device_ms, host_ms, by_kernel
+
+
+def phase_training(dev: torch.device, cache_dir: str) -> dict:
+    """Swin-L 800² b2 bf16, accumulation 2, remat, from the .npz cache."""
+    steps_total = WARMUP_STEPS + TIMED_STEPS + 1
+    t0 = time.perf_counter()
+    process_and_save(_SynthRaw(TRAIN_BATCH * steps_total), cache_dir)
+    log(f'synthetic .npz cache of {TRAIN_BATCH * steps_total} samples written in '
+        f'{time.perf_counter() - t0:.1f} s')
+    dataset = PreprocessedDataset(cache_dir, keys=TRAIN_SAMPLE_KEYS)
+    collate = make_train_collate((TRAIN_HW, TRAIN_HW), TRAIN_INSTANCES, TRAIN_BATCH)
+    batches = device_batches(DataLoader(dataset, TRAIN_BATCH, collate, prefetch=2), dev)
+
+    model = build_model('swin-large', num_labels=TRAIN_LABELS, device=dev, seed=0, train=True,
+                        remat=True)
+    cfg = model.config
+    optimizer = make_optimizer(model.parameters(), LEARNING_RATE)
+    step = make_train_step(model, cfg, optimizer, ACCUMULATION, torch.bfloat16)
+    for i in range(WARMUP_STEPS):
+        t0 = time.perf_counter()
+        loss = step(next(batches))
+        torch.cuda.synchronize()
+        log(f'warm-up micro-step {i}: loss {loss.item():.4f}, '
+            f'{1e3 * (time.perf_counter() - t0):.1f} ms')
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    times = []
+    for i in range(TIMED_STEPS):
+        batch = next(batches)
+        snapshot = _snapshot(model)
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launched = {k: v - before[k] for k, v in counts().items()}
+        update = (WARMUP_STEPS + i + 1) % ACCUMULATION == 0
+        check(math.isfinite(loss.item()), f'micro-step {i}: loss {loss.item()}')
+        for name in ('window_attention_fwd', 'window_attention_bwd', 'masked_attention_fwd',
+                     'masked_attention_bwd'):
+            check(launched[name] > 0, f'micro-step {i} did not launch {name}')
+        check(_unchanged(model, snapshot) != update,
+              f'micro-step {i}: parameters {"unchanged on an update" if update else "changed between updates"}')
+        log(f'micro-step {i}: loss {loss.item():.4f}, {1e3 * times[-1]:.1f} ms, '
+            f'{"update" if update else "accumulate"}, launches {launched}')
+        del snapshot
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    ms = 1e3 * statistics.median(times)
+    log(f'training swin-large {TRAIN_HW}x{TRAIN_HW} b{TRAIN_BATCH} bf16 GA{ACCUMULATION} remat: '
+        f'micro-step {ms:.1f} ms median ({", ".join(f"{1e3 * t:.1f}" for t in times)}), '
+        f'{TRAIN_BATCH * TIMED_STEPS / sum(times):.3f} img/s, peak memory {peak:.2f} GiB, '
+        f'launches {launches}')
+
+    # where the time goes: a profiler trace of two more micro-steps (one
+    # update), split by the train step's own ranges
+    batch = next(batches)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(batch)
+        step(batch)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    trace_path = os.path.join(cache_dir, 'trace.json')
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        device_ms, host_ms, by_kernel = trace_split(json.load(f))
+    busy = sum(device_ms.values())
+    log(f'traced 2 micro-steps (one update): {wall:.1f} ms wall, {busy:.1f} ms device busy, '
+        f'idle share {max(0.0, 1 - busy / wall):.3f}')
+    log('split by the step\'s ranges, summed over both micro-steps: device busy ms '
+        + ', '.join(f'{k} {v:.1f}' for k, v in device_ms.items()) + '; host ms '
+        + ', '.join(f'{k} {v:.1f}' for k, v in host_ms.items()))
+    log('device ms by kernel, top 15:')
+    for key, ms in by_kernel.most_common(15):
+        log(f'  {ms:9.2f}  {key[:110]}')
+    del model, optimizer, step, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _tiny_batch(seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    samples = []
+    for n in (3, 2):
+        masks = np.zeros((n, 64, 96), np.uint8)
+        for j in range(n):
+            y, x = rng.integers(0, 48), rng.integers(0, 80)
+            masks[j, y:y + 12, x:x + 14] = 1
+        samples.append({'pixel_values': rng.standard_normal((3, 64, 96)).astype(np.float32),
+                        'mask_labels': masks, 'class_labels': rng.integers(0, 3, n)})
+    return make_train_collate((64, 96), 4, 2)(samples)
+
+
 def phase_tiny_parity(dev: torch.device) -> None:
-    """tiny-test f32: the card's serving output against the CPU's."""
+    """tiny-test f32: the card's serving output and one train step against
+    the CPU's."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cpu_model = build_model('tiny-test', num_labels=3, seed=0)
+    cpu_model = build_model('tiny-test', num_labels=3, device='cpu', seed=0)
     gpu_model = copy.deepcopy(cpu_model).to(dev)
     out_hw, threshold = (64, 96), 0.23  # 2x upscale: the pre-process is exact
     raw = torch.from_numpy(
@@ -199,10 +586,55 @@ def phase_tiny_parity(dev: torch.device) -> None:
     masks_differ = got['masks'] != want['masks']
     check(bool(near_zero[:, None].expand_as(masks_differ)[masks_differ].all()),
           'masks differ away from zero crossings')
-    log(f'tiny-test f32 card vs CPU: {int(want["valid"].sum())} segments kept, valid/ids/labels '
-        f'equal, scores max abs err {score_err:.2e}, id map differs at {int(differ.sum())} '
-        f'pixels (all at zero crossings within {margin:.2e}), logits max abs diff '
-        f'{margin - 1e-5:.2e}')
+    log(f'tiny-test f32 serving, card vs CPU: {int(want["valid"].sum())} segments kept, '
+        f'valid/ids/labels equal, scores max abs err {score_err:.2e}, id map differs at '
+        f'{int(differ.sum())} pixels (all at zero crossings within {margin:.2e}), logits max '
+        f'abs diff {margin - 1e-5:.2e}')
+
+    # one train step: the kernels forward and backward on the card, the plain
+    # path on the CPU, the same random draws (a CPU generator on both sides)
+    cpu_model = build_model('tiny-test', num_labels=3, device='cpu', seed=0, train=True)
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    batch = _tiny_batch(0)
+    results = []
+    for model, device in ((cpu_model, torch.device('cpu')), (gpu_model, dev)):
+        step = make_train_step(model, model.config,
+                               make_optimizer(model.parameters(), LEARNING_RATE))
+        before = counts()
+        loss = step(to_device(batch, device), PointDraws(torch.Generator().manual_seed(3)))
+        launched = {k: v - before[k] for k, v in counts().items()}
+        results.append((loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()},
+                        {n: p.detach().cpu() for n, p in model.named_parameters()}, launched))
+    (want_loss, want_grads, want_params, cpu_launched), (loss, grads, params, gpu_launched) = results
+    check(not any(cpu_launched.values()), f'the CPU step launched kernels: {cpu_launched}')
+    check(all(gpu_launched[k] > 0 for k in gpu_launched if k != 'fused_upsample_stats'),
+          f'the card step did not launch every attention kernel: {gpu_launched}')
+    loss_err = abs(loss - want_loss) / abs(want_loss)
+    check(loss_err <= 1e-5, f'tiny-test train loss differs by {loss_err:.2e} relative')
+    worst, noise_leaves = (0.0, ''), []
+    for name, want in want_grads.items():
+        err = (grads[name] - want).abs().max().item()
+        scale = want.abs().max().item()
+        if scale < 1e-6:  # zero in exact arithmetic: float32 noise, held to 1e-6 absolute
+            noise_leaves.append(name)
+            check(err <= 1e-6, f'gradient of noise leaf {name}: {err:.3e}')
+        else:
+            check(err <= 1e-4 * scale, f'gradient of {name}: {err:.3e} of {scale:.3e}')
+            worst = max(worst, (err / scale, name))
+    noisy, worst_param = 0, (0.0, '')
+    for name, want in want_params.items():
+        # entries whose gradient is noise get an Adam update of up to ±lr
+        noise = torch.maximum(grads[name].abs(), want_grads[name].abs()) < 1e-6
+        err = (params[name] - want).abs()
+        check(bool((err <= torch.where(noise, 2 * LEARNING_RATE * (1 + 1e-3), 1e-6)).all()),
+              f'updated {name} differs by {err.max().item():.3e}')
+        noisy += int(noise.sum())
+        worst_param = max(worst_param, (err[~noise].max().item() if (~noise).any() else 0.0, name))
+    log(f'tiny-test f32 train step, card vs CPU: loss {loss:.6f} vs {want_loss:.6f} '
+        f'({loss_err:.2e} relative); worst gradient leaf {worst[1]} at {worst[0]:.2e} of its '
+        f'largest; leaves below the 1e-6 noise level, held to 1e-6 absolute: {noise_leaves}; '
+        f'worst updated parameter {worst_param[1]} at {worst_param[0]:.2e} '
+        f'({noisy} entries with noise gradients held to 2 lr); launches {gpu_launched}')
 
 
 def main() -> int:
@@ -215,20 +647,37 @@ def main() -> int:
         f'python {sys.version.split()[0]}')
 
     t0 = time.perf_counter()
-    load_library('postprocess_stats')
-    seconds, compiler_output = build_log.get('postprocess_stats', (0.0, 'already built'))
-    log(f'built postprocess_stats in {seconds:.2f} s (load {time.perf_counter() - t0:.2f} s)')
-    log(compiler_output.strip())
+    build_libraries(LIBRARIES)
+    log(f'built {len(build_log)} of {len(LIBRARIES)} libraries in '
+        f'{time.perf_counter() - t0:.2f} s (nvcc in parallel)')
+    for name in LIBRARIES:
+        seconds, output = build_log.get(name, (0.0, 'already built'))
+        log(f'{name}: {seconds:.2f} s')
+        log('\n'.join(line for line in output.splitlines()
+                      if 'registers' in line or 'spill' in line or 'error' in line))
 
-    timing = phase_kernel(dev)
-    launches = phase_serving(dev)
-    check(launches > 0, 'the serving path never launched the kernel')
+    timing = {'fused_upsample_stats': phase_postprocess_kernel(dev)}
+    timing.update(phase_window_attention(dev))
+    timing.update(phase_masked_attention(dev))
+
+    serving = phase_serving(dev)
+    with tempfile.TemporaryDirectory() as cache_dir:
+        training = phase_training(dev, cache_dir)
+    for name in ('window_attention_fwd', 'window_attention_bwd', 'masked_attention_fwd',
+                 'masked_attention_bwd'):
+        check(training[name] > 0, f'the training run never launched {name}')
+    check(serving['fused_upsample_stats'] > 0, 'the serving run never launched the post-process')
     phase_tiny_parity(dev)
 
-    print(json.dumps({'kernels': [{
-        'name': 'fused_upsample_stats', 'route': 'cuda', 'source': KERNEL_SOURCE,
-        'replaces': KERNEL_REPLACES, 'launches': launches, **timing,
-    }]}))
+    path = {'fused_upsample_stats': serving}
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        launches = path.get(name, training)[name]
+        kernels.append({'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
+                        'launches': launches,
+                        'launches_by_path': {'serving': serving[name], 'training': training[name]},
+                        **timing[name]})
+    print(json.dumps({'kernels': kernels}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

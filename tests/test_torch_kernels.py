@@ -1,5 +1,6 @@
-"""The post-process CUDA kernel's wrapper, tap layout and, on a card, the
-kernel against its plain version.
+"""The CUDA kernels' wrappers and, on a card, each kernel against its plain
+version: the post-process kernel, and the window-attention and
+masked-attention kernels forward and backward.
 
 This file imports neither jax nor the JAX package, so the ``cuda`` tests also
 run on a machine that has only PyTorch and the CUDA toolkit:
@@ -11,10 +12,17 @@ import numpy as np
 import pytest
 import torch
 
+from weed_instance_segmentation_tpu_torch.models.swin import shifted_window_attn_mask
+from weed_instance_segmentation_tpu_torch.ops.masked_attention import (
+    masked_attention, masked_attention_plain,
+)
 from weed_instance_segmentation_tpu_torch.ops.postprocess_kernel import (
     bilinear_taps, fused_upsample_stats, fused_upsample_stats_plain, upsample_plain,
 )
 from weed_instance_segmentation_tpu_torch.ops.resize import bilinear_resize_matrix
+from weed_instance_segmentation_tpu_torch.ops.window_attention import (
+    window_attention, window_attention_plain,
+)
 
 
 @pytest.mark.parametrize('in_size,out_size', [(200, 384), (25, 384), (384, 200), (7, 7), (1, 5)])
@@ -98,3 +106,97 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, score_hw):
     flips_per_map = flips.sum(dim=(-1, -2)).float()
     assert ((cnt - p_cnt).abs() <= flips_per_map).all()
     assert ((sig - p_sig).abs() <= 1e-5 * p_sig.abs() + 0.5001 * flips_per_map).all()
+
+
+def _kernel_vs_plain(kernel, plain, tensors, consts, grad_index, dtype, seed):
+    """Run ``kernel`` on ``tensors`` (q, k, v cast to ``dtype``; any further
+    tensor stays float32) and ``plain`` on the same values in float32, both
+    under autograd with one random cotangent; return the worst error relative
+    to the plain result's largest magnitude over the output and the gradients
+    of ``tensors[i]`` for ``grad_index``."""
+    ins = [(t.to(dtype) if i < 3 else t).requires_grad_(i in grad_index)
+           for i, t in enumerate(tensors)]
+    ref_ins = [t.detach().float().requires_grad_(i in grad_index) for i, t in enumerate(ins)]
+    out = kernel(*ins, *consts)
+    ref = plain(*ref_ins, *consts)
+    g = torch.Generator(device=out.device).manual_seed(seed)
+    cot = torch.randn(out.shape, generator=g, device=out.device)
+    out.backward(cot.to(dtype))
+    ref.backward(cot.to(dtype).float())
+    torch.cuda.synchronize()
+    errs = {'out': ((out.float() - ref).abs().max() / ref.abs().max()).item()}
+    for i in grad_index:
+        want = ref_ins[i].grad
+        errs[i] = ((ins[i].grad.float() - want).abs().max() / want.abs().max()).item()
+    return errs
+
+
+WINDOW_CASES = {  # (images, height, width of the padded map, window, heads, head_dim)
+    'small': (2, 8, 12, 4, 2, 16),
+    'small-d64': (2, 8, 12, 4, 2, 64),
+    'swin-l-stage1-b2': (2, 204, 204, 12, 6, 32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('shifted', [False, True], ids=['plain', 'shifted'])
+@pytest.mark.parametrize('case', list(WINDOW_CASES))
+def test_window_attention_kernels_match_plain(cuda_device, case, shifted, dtype, tol):
+    """O, dQ, dK, dV and dBias within ``tol`` of the plain version's largest
+    magnitude (f32: 1e-4; bf16: 2e-2 against the plain version in f32 on the
+    same bf16 values); each call launches the forward and backward kernel
+    once."""
+    images, h, w, ws, heads, d = WINDOW_CASES[case]
+    nw, t = images * (h // ws) * (w // ws), ws * ws
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v = (torch.randn((nw, heads, t, d), generator=g, device=cuda_device) for _ in range(3))
+    bias = torch.randn((heads, t, t), generator=g, device=cuda_device)
+    mask = torch.from_numpy(shifted_window_attn_mask(h, w, ws, ws // 2)).to(cuda_device) \
+        if shifted else None
+    launches = window_attention.launches, window_attention.backward_launches
+    errs = _kernel_vs_plain(window_attention, window_attention_plain, [q, k, v, bias], [mask],
+                            (0, 1, 2, 3), dtype, 2)
+    assert (window_attention.launches, window_attention.backward_launches) == \
+        (launches[0] + 1, launches[1] + 1)
+    assert max(errs.values()) <= tol, errs
+
+
+MASKED_CASES = {'small': (2, 2, 10, 40, 16), 'small-d64': (1, 3, 7, 100, 64)}
+MASKED_CASES.update({f'swin-l-s{s}': (2, 8, 200, s, 32) for s in (10000, 2500, 625)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case', list(MASKED_CASES))
+def test_masked_attention_kernels_match_plain(cuda_device, case, dtype, tol):
+    """O, dQ, dK and dV with 70 % of the scores masked (and the all-masked-row
+    escape) within ``tol`` of the plain version's largest magnitude."""
+    b, heads, nq, s, d = MASKED_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randn((b, heads, nq, d), generator=g, device=cuda_device) * d ** -0.5
+    k, v = (torch.randn((b, heads, s, d), generator=g, device=cuda_device) for _ in range(2))
+    mask = torch.rand((b, 1, nq, s), generator=g, device=cuda_device) < 0.7
+    mask[:, :, 0] = True
+    mask &= ~mask.all(dim=-1, keepdim=True)
+    launches = masked_attention.launches, masked_attention.backward_launches
+    errs = _kernel_vs_plain(masked_attention, masked_attention_plain, [q, k, v], [mask],
+                            (0, 1, 2), dtype, 4)
+    assert (masked_attention.launches, masked_attention.backward_launches) == \
+        (launches[0] + 1, launches[1] + 1)
+    assert max(errs.values()) <= tol, errs
+
+
+@pytest.mark.cuda
+def test_attention_wrappers_raise_on_shapes_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros((2, 2, 16, 8), device=cuda_device)
+    with pytest.raises(ValueError, match='head_dim'):
+        window_attention(q, q, q, torch.zeros((2, 16, 16), device=cuda_device))
+    with pytest.raises(TypeError, match='float32 or all bfloat16'):
+        window_attention(q.half(), q.half(), q.half(), torch.zeros((2, 16, 16), device=cuda_device))
+    q = torch.zeros((1, 1, 600, 16), device=cuda_device)
+    with pytest.raises(ValueError, match='queries'):
+        masked_attention(q, q, q, torch.zeros((1, 1, 600, 600), dtype=torch.bool,
+                                              device=cuda_device))

@@ -85,9 +85,9 @@ def test_micro_batch_and_lean_response(models):
 
 
 def test_build_model_is_seeded():
-    a = build_model('tiny-test', num_labels=3, seed=0)
-    b = build_model('tiny-test', num_labels=3, seed=0)
-    c = build_model('tiny-test', num_labels=3, seed=1)
+    a = build_model('tiny-test', num_labels=3, device='cpu', seed=0)
+    b = build_model('tiny-test', num_labels=3, device='cpu', seed=0)
+    c = build_model('tiny-test', num_labels=3, device='cpu', seed=1)
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa['class_predictor.weight'], sc['class_predictor.weight'])
@@ -95,8 +95,23 @@ def test_build_model_is_seeded():
     msda = a.pixel_decoder.encoder_layer_0.self_attn
     assert not msda.sampling_offsets.weight.any() and msda.sampling_offsets.bias.any()
     assert not msda.attention_weights.weight.any()
-    assert build_model('tiny-test', 3, dtype=torch.bfloat16).class_predictor.weight.dtype \
-        == torch.bfloat16
+    assert build_model('tiny-test', 3, dtype=torch.bfloat16, device='cpu') \
+        .class_predictor.weight.dtype == torch.bfloat16
+    assert not a.training
+
+
+def test_build_model_runs_on_the_card_unless_asked(monkeypatch):
+    """The default device is the card: without one it raises rather than
+    falling back to the CPU. ``train=True`` gives float32 parameters in train
+    mode."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        build_model('tiny-test', num_labels=3)
+    model = build_model('tiny-test', num_labels=3, device='cpu', train=True, remat=True)
+    assert model.training and model.backbone.remat and model.pixel_decoder.remat
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    with pytest.raises(ValueError, match='float32 parameters'):
+        build_model('tiny-test', num_labels=3, dtype=torch.bfloat16, device='cpu', train=True)
 
 
 _BLOCKED_IMPORTS = r'''
@@ -111,17 +126,27 @@ for name in names:
     importlib.import_module(name)
 from weed_instance_segmentation_tpu_torch.engine.export import make_serving_fn
 from weed_instance_segmentation_tpu_torch.engine.model_utils import build_model
-model = build_model('tiny-test', num_labels=3, seed=0)
+from weed_instance_segmentation_tpu_torch.datasets.dataset_utils import make_train_collate
+from weed_instance_segmentation_tpu_torch.datasets.loader import to_device
+from weed_instance_segmentation_tpu_torch.engine.steps import make_optimizer, make_train_step
+model = build_model('tiny-test', num_labels=3, device='cpu', seed=0)
 raw = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (1, 32, 32, 3), dtype=np.uint8))
 res = make_serving_fn(model, out_hw=(64, 64), threshold=0.0)(raw)
 assert res['segmentation'].shape == (1, 64, 64), res['segmentation'].shape
+model = build_model('tiny-test', num_labels=3, device='cpu', seed=0, train=True, remat=True)
+step = make_train_step(model, model.config, make_optimizer(model.parameters(), 5e-5))
+sample = {'pixel_values': np.zeros((3, 64, 64), np.float32),
+          'mask_labels': np.ones((1, 64, 64), np.uint8), 'class_labels': np.zeros(1, np.int64)}
+loss = step(to_device(make_train_collate((64, 64), 2, 1)([sample]), 'cpu'))
+assert torch.isfinite(loss), loss
 print('imported', len(names), 'modules')
 '''
 
 
 def test_port_imports_nothing_of_jax():
-    """Every port module imports, and a tiny serving call runs, with jax,
-    flax, PIL, transformers and the JAX package made unimportable."""
+    """Every port module imports, and a tiny serving call and a tiny train
+    step run, with jax, flax, PIL, transformers and the JAX package made
+    unimportable."""
     env = {**os.environ, 'PYTHONPATH': REPO + os.pathsep + os.environ.get('PYTHONPATH', '')}
     proc = subprocess.run([sys.executable, '-c', _BLOCKED_IMPORTS], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)

@@ -84,12 +84,25 @@ def init_weights(model: Mask2Former, seed: int = 0) -> None:
 
 
 def build_model(arch: str, num_labels: int, dtype: torch.dtype = torch.float32,
-                device: str | torch.device = 'cpu', seed: int = 0) -> Mask2Former:
-    """Randomly initialised ``Mask2Former`` for ``arch`` in eval mode, with
-    parameters of ``dtype`` on ``device``; it computes in ``dtype``."""
+                device: str | torch.device = 'cuda', seed: int = 0, *, train: bool = False,
+                remat: bool | str = False) -> Mask2Former:
+    """Randomly initialised ``Mask2Former`` for ``arch`` on ``device`` (the
+    card unless the caller asks for the CPU; without a card, 'cuda' raises).
+
+    Serving (``train=False``): eval mode, parameters of ``dtype``, and it
+    computes in ``dtype``. Training (``train=True``): train mode with float32
+    parameters, the AdamW master copy; the bf16 compute comes from the train
+    step's autocast, as the JAX package's ``dtype=bf16, param_dtype=f32``
+    pair. ``remat`` as :class:`Mask2Former` takes it."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('build_model: no CUDA device is available; pass device=\'cpu\' '
+                           'to build the model on the CPU')
+    if train and dtype != torch.float32:
+        raise ValueError(f'a training model keeps float32 parameters, got dtype={dtype}')
     cfg = config_for_arch(arch, num_labels=num_labels)
     with torch.device('meta'):
-        model = Mask2Former(cfg)
+        model = Mask2Former(cfg, remat=remat)
     model.to_empty(device='cpu')
     init_weights(model, seed)
-    return model.to(device=device, dtype=dtype).eval()
+    return model.to(device=device, dtype=dtype).train(train)

@@ -1,0 +1,120 @@
+"""Train and eval steps.
+
+Port of ``weed_instance_segmentation_tpu/engine/steps.py``:
+
+- ``make_optimizer``: ``torch.optim.AdamW`` with torch's defaults (betas
+  (0.9, 0.999), eps 1e-8, weight decay 0.01 on every parameter), the same
+  decoupled update as the JAX package's ``optax.adamw``.
+- Gradient accumulation with ``optax.MultiSteps`` semantics: the update uses
+  the mean of ``gradient_accumulation`` micro-step gradients and happens on
+  every k-th call; parameters are untouched in between, and Adam's step count
+  counts updates only.
+- The forward runs under ``torch.autocast`` in ``compute_dtype`` when that is
+  not float32 (float32 parameters, the master copy); the criterion runs in
+  float32; the MSDA core keeps float32 coordinates (models/pixel_decoder.py).
+- A train step's four parts run in ``torch.profiler.record_function`` ranges
+  named ``forward``, ``criterion``, ``backward`` and ``optimizer``, so a
+  profiler trace of real steps splits their time.
+
+A batch is the dict of ``datasets/dataset_utils.py::pad_batch_static`` as
+tensors on the model's device (``datasets/loader.py::to_device``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable
+
+import torch
+from torch.profiler import record_function
+
+from weed_instance_segmentation_tpu_torch.losses.criterion import PointDraws, total_loss
+from weed_instance_segmentation_tpu_torch.models.configuration import Mask2FormerConfig
+
+
+def make_optimizer(params, learning_rate: float) -> torch.optim.AdamW:
+    return torch.optim.AdamW(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=0.01)
+
+
+def _autocast(device: torch.device, compute_dtype: torch.dtype):
+    if compute_dtype == torch.float32:
+        return contextlib.nullcontext()
+    return torch.autocast(device.type, dtype=compute_dtype)
+
+
+def make_loss_fn(model: torch.nn.Module, cfg: Mask2FormerConfig,
+                 compute_dtype: torch.dtype = torch.float32) -> Callable:
+    """(batch, draws) → (total loss, weighted loss dict)."""
+
+    def loss_fn(batch: dict, draws: PointDraws):
+        pixels = batch['pixel_values']
+        with record_function('forward'), _autocast(pixels.device, compute_dtype):
+            outputs = model(pixels, draws.generator)
+        with record_function('criterion'):
+            return total_loss(
+                outputs, batch['mask_labels'].float(), batch['class_labels'],
+                batch['instance_valid'] > 0, draws,
+                num_labels=cfg.num_labels, no_object_weight=cfg.no_object_weight,
+                train_num_points=cfg.train_num_points, oversample_ratio=cfg.oversample_ratio,
+                importance_sample_ratio=cfg.importance_sample_ratio,
+                class_weight=cfg.class_weight, mask_weight=cfg.mask_weight,
+                dice_weight=cfg.dice_weight, use_auxiliary_loss=cfg.use_auxiliary_loss,
+                sample_valid=batch.get('sample_valid'))
+
+    return loss_fn
+
+
+def make_train_step(model: torch.nn.Module, cfg: Mask2FormerConfig,
+                    optimizer: torch.optim.Optimizer, gradient_accumulation: int = 1,
+                    compute_dtype: torch.dtype = torch.float32) -> Callable:
+    """(batch, draws=None) → loss of this micro-batch (a detached scalar).
+
+    One micro-batch per call; the optimizer steps on every
+    ``gradient_accumulation``-th call with the mean gradient, which stays in
+    each parameter's ``.grad`` until the next cycle's first backward. The
+    step's random numbers come from the call's ``draws``, or else from one
+    :class:`PointDraws` on the model's device, seeded 0, that the step keeps."""
+    if gradient_accumulation < 1:
+        raise ValueError(f'gradient_accumulation must be >= 1, got {gradient_accumulation}')
+    loss_fn = make_loss_fn(model, cfg, compute_dtype)
+    params = [p for p in model.parameters() if p.requires_grad]
+    default_draws = PointDraws(torch.Generator(device=params[0].device).manual_seed(0))
+    micro_steps = 0
+
+    def train_step(batch: dict, draws: PointDraws | None = None) -> torch.Tensor:
+        nonlocal micro_steps
+        if micro_steps % gradient_accumulation == 0:
+            optimizer.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(batch, draws or default_draws)
+        with record_function('backward'):
+            loss.backward()
+        micro_steps += 1
+        if micro_steps % gradient_accumulation == 0:
+            with record_function('optimizer'):
+                if gradient_accumulation > 1:
+                    for p in params:
+                        if p.grad is not None:
+                            p.grad.div_(gradient_accumulation)
+                optimizer.step()
+        return loss.detach()
+
+    return train_step
+
+
+def make_eval_step(model: torch.nn.Module, cfg: Mask2FormerConfig,
+                   compute_dtype: torch.dtype = torch.float32) -> Callable:
+    """(batch, draws) → forward-only loss, with the model in eval mode (no
+    drop path); fixed ``draws`` give a stable validation metric."""
+    loss_fn = make_loss_fn(model, cfg, compute_dtype)
+
+    @torch.no_grad()
+    def eval_step(batch: dict, draws: PointDraws) -> torch.Tensor:
+        was_training = model.training
+        model.eval()
+        try:
+            return loss_fn(batch, draws)[0]
+        finally:
+            model.train(was_training)
+
+    return eval_step

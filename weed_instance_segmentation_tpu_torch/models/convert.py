@@ -1,4 +1,4 @@
-"""JAX package flax params → this package's ``state_dict``.
+"""JAX package flax params ↔ this package's ``state_dict``.
 
 The port's module attributes follow the flax tree's names
 (``backbone.stage0_block1.attention.query``,
@@ -13,7 +13,9 @@ flatten plus three layout rules:
 Every other leaf (biases, ``relative_position_bias_table``, ``level_embed``,
 the query embeddings) keeps its name and layout. Load the result with
 ``model.load_state_dict(sd, strict=True)``, which raises on any key left
-unfilled or unused.
+unfilled or unused. :func:`state_dict_to_jax` is the inverse (every 1-D
+``weight`` in this model is a norm's scale), so gradients and updated
+parameters can be compared with the JAX package's leaf by leaf.
 """
 
 from __future__ import annotations
@@ -56,3 +58,28 @@ def params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
 
     walk(params, '')
     return state_dict
+
+
+def state_dict_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """Flat ``state_dict`` (or gradients keyed the same way) → nested flax
+    tree of float32 numpy arrays; the inverse of :func:`params_from_jax`."""
+    tree: dict = {}
+    for full, tensor in state_dict.items():
+        *path, name = full.split('.')
+        value = tensor.detach().cpu().float().numpy()
+        if name == 'weight':
+            if value.ndim == 2:
+                name, value = 'kernel', value.T
+            elif value.ndim == 4:
+                name, value = 'kernel', value.transpose(2, 3, 1, 0)
+            elif value.ndim == 1:
+                name = 'scale'
+            else:
+                raise ValueError(f'weight of rank {value.ndim} has no flax layout rule')
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        if name in node:
+            raise ValueError(f'two entries map to the flax leaf {full!r}')
+        node[name] = np.ascontiguousarray(value)
+    return tree

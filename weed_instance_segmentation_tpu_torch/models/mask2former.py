@@ -8,7 +8,10 @@ intermediate layernormed decoder state; per-layer mask logits come from the
 transformer module.
 
 API: NCHW ``pixel_values`` like the reference, transposed once to NHWC
-inside. The model computes in the dtype of its parameters.
+inside. The model computes in the dtype of its parameters, or under the
+caller's autocast. ``remat`` recomputes activations in the backward, as the
+JAX model's: True = backbone blocks and deformable encoder layers,
+'encoder' = encoder layers only, False = store everything.
 """
 
 from __future__ import annotations
@@ -42,21 +45,26 @@ class Mask2FormerOutput(NamedTuple):
 
 
 class Mask2Former(nn.Module):
-    def __init__(self, config: Mask2FormerConfig):
+    def __init__(self, config: Mask2FormerConfig, remat: bool | str = False):
         super().__init__()
         if not isinstance(config.backbone_config, SwinConfig):
             raise ValueError(f'Unsupported backbone config {type(config.backbone_config)}')
+        if remat not in (True, False, 'encoder'):
+            raise ValueError(f'remat must be True, False or \'encoder\', got {remat!r}')
         self.config = config
-        self.backbone = SwinBackbone(config.backbone_config)
-        self.pixel_decoder = PixelDecoder(config, config.backbone_config.channels)
+        self.backbone = SwinBackbone(config.backbone_config, remat=remat is True)
+        self.pixel_decoder = PixelDecoder(config, config.backbone_config.channels,
+                                          remat=bool(remat))
         self.transformer_module = TransformerModule(config)
         self.class_predictor = nn.Linear(config.hidden_dim, config.num_labels + 1)
 
-    def forward(self, pixel_values: torch.Tensor) -> Mask2FormerOutput:
-        """pixel_values: (B, 3, H, W) float — reference/HF layout."""
+    def forward(self, pixel_values: torch.Tensor,
+                generator: torch.Generator | None = None) -> Mask2FormerOutput:
+        """pixel_values: (B, 3, H, W) float — reference/HF layout.
+        ``generator`` draws the backbone's drop-path masks in training mode."""
         dtype = self.class_predictor.weight.dtype
         x = pixel_values.permute(0, 2, 3, 1).to(dtype)  # NHWC
-        features = self.backbone(x)
+        features = self.backbone(x, generator)
         mask_features, multi_scale = self.pixel_decoder(features)
         intermediate, mask_logits = self.transformer_module(multi_scale, mask_features)
         class_logits = tuple(self.class_predictor(h) for h in intermediate)

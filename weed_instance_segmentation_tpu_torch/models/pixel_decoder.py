@@ -11,9 +11,14 @@ convolutions run NCHW inside. Reference points and sine position embeddings
 are shape-derived constants (the HF code builds masks of zeros, so valid
 ratios are always 1).
 
-Sampling locations are computed in float32 whatever the compute dtype. (The
-JAX package forms them in the compute dtype, so at bf16 they are rounded
+Sampling locations are computed in float32 whatever the compute dtype, and
+the MSDA core runs outside autocast (float32 coordinates and sums). (The JAX
+package forms the locations in the compute dtype, so at bf16 they are rounded
 before its MSDA casts them to float32; the port does not copy that.)
+
+``remat`` recomputes each encoder layer in the backward except the MSDA
+output, which is kept (the JAX ``save_only_these_names('msda_out')`` policy):
+the layer runs as two checkpointed regions around the MSDA call.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from weed_instance_segmentation_tpu_torch.models.configuration import Mask2FormerConfig
 from weed_instance_segmentation_tpu_torch.models.position_embedding import sine_position_embedding
@@ -63,7 +69,9 @@ def _offset_normalizer(spatial_shapes: tuple) -> np.ndarray:
 
 
 class MSDeformAttn(nn.Module):
-    """Deformable attention module (HF:888-986)."""
+    """Deformable attention module (HF:888-986): :meth:`sampling_inputs`,
+    then :meth:`core`, then ``output_proj`` (``EncoderLayer`` runs the three
+    so that remat can keep the core's output)."""
 
     def __init__(self, embed_dim: int, num_heads: int, n_levels: int, n_points: int):
         super().__init__()
@@ -73,8 +81,11 @@ class MSDeformAttn(nn.Module):
         self.attention_weights = nn.Linear(embed_dim, num_heads * n_levels * n_points)
         self.output_proj = nn.Linear(embed_dim, embed_dim)
 
-    def forward(self, hidden_states, position_embeddings, reference_points, spatial_shapes):
-        """hidden_states: (B, L, C); reference_points: (L, 2) float32."""
+    def sampling_inputs(self, hidden_states, position_embeddings, reference_points,
+                        spatial_shapes):
+        """hidden_states: (B, L, C); reference_points: (L, 2) float32 →
+        (value (B, L, heads, C/heads), locations (B, L, heads, levels,
+        points, 2) f32, weights (B, L, heads, levels, points) f32)."""
         b, seq, dim = hidden_states.shape
         nh, nl, npts = self.num_heads, self.n_levels, self.n_points
 
@@ -88,9 +99,14 @@ class MSDeformAttn(nn.Module):
         normalizer = device_constant(_offset_normalizer, (spatial_shapes,), hidden_states.device)
         locations = (reference_points[None, :, None, None, None, :]
                      + offsets.float() / normalizer[None, None, None, :, None, :])
+        return value, locations, attn
 
-        out = msda(value, spatial_shapes, locations, attn)
-        return self.output_proj(out)
+    @staticmethod
+    def core(value, locations, attn, spatial_shapes):
+        """The MSDA sampling sum, in float32 coordinates and sums even
+        under autocast."""
+        with torch.autocast(value.device.type, enabled=False):
+            return msda(value, spatial_shapes, locations, attn)
 
 
 class EncoderLayer(nn.Module):
@@ -107,11 +123,21 @@ class EncoderLayer(nn.Module):
         self.fc2 = nn.Linear(config.encoder_feedforward_dim, dim)
         self.final_layer_norm = nn.LayerNorm(dim, eps=1e-5)
 
-    def forward(self, hidden_states, position_embeddings, reference_points, spatial_shapes):
-        residual = hidden_states
-        hidden_states = self.self_attn(hidden_states, position_embeddings, reference_points,
-                                       spatial_shapes)
-        hidden_states = self.self_attn_layer_norm(residual + hidden_states)
+    def forward(self, hidden_states, position_embeddings, reference_points, spatial_shapes,
+                remat: bool = False):
+        """``remat``: checkpoint everything but the MSDA output."""
+        attn = self.self_attn
+        if remat and torch.is_grad_enabled():
+            sampling = checkpoint(attn.sampling_inputs, hidden_states, position_embeddings,
+                                  reference_points, spatial_shapes, use_reentrant=False)
+            msda_out = attn.core(*sampling, spatial_shapes)
+            return checkpoint(self._after_msda, msda_out, hidden_states, use_reentrant=False)
+        sampling = attn.sampling_inputs(hidden_states, position_embeddings, reference_points,
+                                        spatial_shapes)
+        return self._after_msda(attn.core(*sampling, spatial_shapes), hidden_states)
+
+    def _after_msda(self, msda_out, residual):
+        hidden_states = self.self_attn_layer_norm(residual + self.self_attn.output_proj(msda_out))
         residual = hidden_states
         hidden_states = self.fc2(F.relu(self.fc1(hidden_states)))
         return self.final_layer_norm(residual + hidden_states)
@@ -127,9 +153,10 @@ class PixelDecoder(nn.Module):
     [stage1(4×) .. stage4(32×)]. Output: (mask_features NHWC,
     [multi_scale NHWC × 3] ordered stride 32, 16, 8)."""
 
-    def __init__(self, config: Mask2FormerConfig, in_channels: tuple):
+    def __init__(self, config: Mask2FormerConfig, in_channels: tuple, remat: bool = False):
         super().__init__()
         self.config = config
+        self.remat = remat
         dim = config.feature_size
         nl = config.num_feature_levels
         # input projections on the nl highest-stride features, highest first
@@ -169,7 +196,7 @@ class PixelDecoder(nn.Module):
 
         for i in range(cfg.encoder_layers):
             hidden = getattr(self, f'encoder_layer_{i}')(hidden, pos_flat, ref_points,
-                                                          spatial_shapes)
+                                                          spatial_shapes, self.remat)
 
         # split back to NHWC maps (ordered stride 32, 16, 8)
         outputs = []

@@ -7,24 +7,29 @@ learned relative-position bias, patch merging, and per-stage output
 LayerNorms taken before downsampling. The window size never shrinks; inputs
 are padded to window multiples (``always_partition=True``).
 
-Window attention is plain batched ``matmul`` + softmax: the JAX package
-computes it in XLA too (its Pallas A/B kernel, ``tools/ab_window_attn.py``,
-never shipped). Stochastic depth is a training feature and is not ported yet:
-this module computes the deterministic forward.
+Window attention goes through ``ops/window_attention.py``: the CUDA kernel
+(port of the Pallas kernel ``tools/ab_window_attn.py``, with the shift mask)
+on the card, its plain version on the CPU.
+
+Training adds stochastic depth (per-sample drop path, rates spread by
+``linspace`` over the blocks) and ``remat``: each block is recomputed in the
+backward (``torch.utils.checkpoint``). The drop-path masks are drawn outside
+the checkpointed block and passed in, so the recompute sees the same masks.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from weed_instance_segmentation_tpu_torch.models.configuration import SwinConfig
 from weed_instance_segmentation_tpu_torch.ops.constants import device_constant
+from weed_instance_segmentation_tpu_torch.ops.window_attention import window_attention
 
 
 def relative_position_index(window_size: int) -> np.ndarray:
@@ -87,6 +92,7 @@ class WindowAttention(nn.Module):
         super().__init__()
         self.window_size = config.window_size
         self.num_heads = num_heads
+        self.dropout = config.attention_probs_dropout_prob
         self.query = nn.Linear(dim, dim, bias=config.qkv_bias)
         self.key = nn.Linear(dim, dim, bias=config.qkv_bias)
         self.value = nn.Linear(dim, dim, bias=config.qkv_bias)
@@ -97,48 +103,58 @@ class WindowAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor]) -> torch.Tensor:
         """x: (windows, tokens, C); attn_mask: (image windows, tokens, tokens)."""
+        if self.training and self.dropout:
+            raise NotImplementedError(f'attention dropout {self.dropout} is not ported: '
+                                      'the window-attention kernel has none')
         nw, tokens, dim = x.shape
         heads = self.num_heads
         head_dim = dim // heads
 
         def split_heads(t):
-            return t.reshape(nw, tokens, heads, head_dim).transpose(1, 2)
-
-        q = split_heads(self.query(x))
-        k = split_heads(self.key(x))
-        v = split_heads(self.value(x))
-        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(head_dim)
+            return t.reshape(nw, tokens, heads, head_dim).transpose(1, 2).contiguous()
 
         rel_idx = device_constant(_flat_relative_position_index, (self.window_size,), x.device)
         rel_bias = self.relative_position_bias_table[rel_idx].reshape(tokens, tokens, heads)
-        scores = scores + rel_bias.permute(2, 0, 1).to(scores.dtype)[None]
-
-        if attn_mask is not None:
-            n_img_windows = attn_mask.shape[0]
-            scores = scores.reshape(-1, n_img_windows, heads, tokens, tokens)
-            scores = scores + attn_mask[None, :, None]
-            scores = scores.reshape(-1, heads, tokens, tokens)
-
-        probs = torch.softmax(scores, dim=-1)
-        out = torch.matmul(probs, v).transpose(1, 2).reshape(nw, tokens, dim)
-        return self.output_dense(out)
+        out = window_attention(split_heads(self.query(x)), split_heads(self.key(x)),
+                               split_heads(self.value(x)),
+                               rel_bias.permute(2, 0, 1).float().contiguous(), attn_mask)
+        return self.output_dense(out.transpose(1, 2).reshape(nw, tokens, dim))
 
 
 class SwinBlock(nn.Module):
     """One Swin layer: LN → (S)W-MSA → residual → LN → MLP → residual
     (SWIN:572-694)."""
 
-    def __init__(self, config: SwinConfig, dim: int, num_heads: int, shift_size: int):
+    def __init__(self, config: SwinConfig, dim: int, num_heads: int, shift_size: int,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         self.window_size = config.window_size
         self.shift_size = shift_size
+        self.drop_path_rate = drop_path_rate
+        self.dropout = config.hidden_dropout_prob
         self.layernorm_before = nn.LayerNorm(dim, eps=config.layer_norm_eps)
         self.attention = WindowAttention(config, dim, num_heads)
         self.layernorm_after = nn.LayerNorm(dim, eps=config.layer_norm_eps)
         self.intermediate_dense = nn.Linear(dim, int(config.mlp_ratio * dim))
         self.output_dense = nn.Linear(int(config.mlp_ratio * dim), dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def drop_path_scales(self, batch: int, device: torch.device,
+                         generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
+        """Stochastic depth (JAX ``SwinBlock._drop_path``): (2, batch) float32
+        per-sample scales, keep/(1 − rate) or 0, for the attention and MLP
+        branches; None when the block keeps every path (eval, or rate 0)."""
+        rate = self.drop_path_rate
+        if not self.training or rate == 0.0:
+            return None
+        keep = 1.0 - rate
+        draw = torch.rand((2, batch), generator=generator,
+                          device=generator.device if generator is not None else device)
+        return (draw.to(device) < keep).float() / keep
+
+    def forward(self, x: torch.Tensor, drop_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B, H, W, C); ``drop_scales`` from :meth:`drop_path_scales`."""
+        if self.training and self.dropout:
+            raise NotImplementedError(f'hidden dropout {self.dropout} is not ported')
         ws = self.window_size
         _, h, w, _ = x.shape
         shortcut = x
@@ -156,7 +172,7 @@ class SwinBlock(nn.Module):
         if shift > 0:
             x = torch.roll(x, shifts=(-shift, -shift), dims=(1, 2))
             attn_mask = device_constant(shifted_window_attn_mask, (hp, wp, ws, shift),
-                                        x.device, x.dtype)
+                                        x.device, torch.float32)
 
         attn = self.attention(window_partition(x, ws), attn_mask)
         x = window_reverse(attn, ws, hp, wp)
@@ -165,11 +181,15 @@ class SwinBlock(nn.Module):
             x = torch.roll(x, shifts=(shift, shift), dims=(1, 2))
         if pad_b or pad_r:
             x = x[:, :h, :w]
+        if drop_scales is not None:
+            x = x * drop_scales[0, :, None, None, None].to(x.dtype)
         x = shortcut + x
 
         y = self.layernorm_after(x)
-        y = F.gelu(self.intermediate_dense(y), approximate='none')  # erf-exact
-        return x + self.output_dense(y)
+        y = self.output_dense(F.gelu(self.intermediate_dense(y), approximate='none'))  # erf-exact
+        if drop_scales is not None:
+            y = y * drop_scales[1, :, None, None, None].to(y.dtype)
+        return x + y
 
 
 class PatchMerging(nn.Module):
@@ -201,25 +221,31 @@ class SwinBackbone(nn.Module):
     ``downsample{s}``, ``stage{k}_norm``), so ``models.convert`` maps its
     params by name."""
 
-    def __init__(self, config: SwinConfig):
+    def __init__(self, config: SwinConfig, remat: bool = False):
         super().__init__()
         self.config = config
+        self.remat = remat
         ps = config.patch_size
         self.patch_embed = nn.Conv2d(config.num_channels, config.embed_dim, ps, stride=ps)
         self.embed_norm = nn.LayerNorm(config.embed_dim, eps=config.layer_norm_eps)
         num_stages = len(config.depths)
+        # stochastic depth schedule (SWIN:732)
+        rates = iter(np.linspace(0, config.drop_path_rate, sum(config.depths)))
         for stage in range(num_stages):
             dim = int(config.embed_dim * 2 ** stage)
             for blk in range(config.depths[stage]):
                 shift = 0 if blk % 2 == 0 else config.window_size // 2
                 self.add_module(f'stage{stage}_block{blk}',
-                                SwinBlock(config, dim, config.num_heads[stage], shift))
+                                SwinBlock(config, dim, config.num_heads[stage], shift,
+                                          float(next(rates))))
             self.add_module(f'stage{stage + 1}_norm', nn.LayerNorm(dim, eps=1e-5))
             if stage < num_stages - 1:
                 self.add_module(f'downsample{stage}', PatchMerging(config, dim))
 
-    def forward(self, pixel_values: torch.Tensor) -> list:
-        """pixel_values: (B, H, W, 3) NHWC. Returns [stage1..stage4] NHWC."""
+    def forward(self, pixel_values: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> list:
+        """pixel_values: (B, H, W, 3) NHWC. Returns [stage1..stage4] NHWC.
+        ``generator`` draws the drop-path masks in training mode."""
         cfg = self.config
         ps = cfg.patch_size
         _, h, w, _ = pixel_values.shape
@@ -234,7 +260,12 @@ class SwinBackbone(nn.Module):
         num_stages = len(cfg.depths)
         for stage in range(num_stages):
             for blk in range(cfg.depths[stage]):
-                x = getattr(self, f'stage{stage}_block{blk}')(x)
+                block = getattr(self, f'stage{stage}_block{blk}')
+                scales = block.drop_path_scales(x.shape[0], x.device, generator)
+                if self.remat and torch.is_grad_enabled():
+                    x = checkpoint(block, x, scales, use_reentrant=False)
+                else:
+                    x = block(x, scales)
             # out-feature norm on the before-downsampling states
             features.append(getattr(self, f'stage{stage + 1}_norm')(x))
             if stage < num_stages - 1:

@@ -9,9 +9,11 @@ Port of ``weed_instance_segmentation_tpu/models/transformer_decoder.py``:
 - the mask predictor is a 3-layer MLP mask embedder + einsum with the pixel
   embeddings, bilinearly resized to the next level's size.
 
-The masked cross-attention is an additive −1e9 bias in plain PyTorch: the JAX
-package computes it in XLA (its Pallas A/B kernel, ``tools/ab_masked_attn.py``,
-never shipped). Batch-first (B, Q, C) layout throughout.
+The masked cross-attention goes through ``ops/masked_attention.py``: the CUDA
+kernel (port of the Pallas kernel ``tools/ab_masked_attn.py``) on the card,
+its plain version (the additive −1e9 bias) on the CPU. The mask predictor
+hands it the boolean mask that the bias is made from. Self-attention stays
+plain PyTorch. Batch-first (B, Q, C) layout throughout.
 """
 
 from __future__ import annotations
@@ -23,14 +25,14 @@ from torch import nn
 from weed_instance_segmentation_tpu_torch.models.configuration import Mask2FormerConfig
 from weed_instance_segmentation_tpu_torch.models.position_embedding import sine_position_embedding
 from weed_instance_segmentation_tpu_torch.ops.constants import device_constant
+from weed_instance_segmentation_tpu_torch.ops.masked_attention import masked_attention
 from weed_instance_segmentation_tpu_torch.ops.resize import interpolate_bilinear
-
-NEG_INF = -1e9
 
 
 class MultiheadAttention(nn.Module):
     """Multi-head attention with q scaled by head_dim**-0.5 before the score
-    matmul and an optional additive bias on the scores."""
+    matmul; with a mask, the masked-attention kernel (bias −1e9 where the
+    mask is True)."""
 
     def __init__(self, embed_dim: int, num_heads: int):
         super().__init__()
@@ -40,9 +42,9 @@ class MultiheadAttention(nn.Module):
         self.v_proj = nn.Linear(embed_dim, embed_dim)
         self.out_proj = nn.Linear(embed_dim, embed_dim)
 
-    def forward(self, query, key, value, attn_bias=None):
-        """query: (B, T, C); key/value: (B, S, C); attn_bias broadcastable to
-        (B, heads, T, S), additive."""
+    def forward(self, query, key, value, mask=None):
+        """query: (B, T, C); key/value: (B, S, C); mask: bool (B, 1, T, S),
+        True = blocked, shared over heads."""
         b, t, c = query.shape
         s = key.shape[1]
         heads = self.num_heads
@@ -50,17 +52,17 @@ class MultiheadAttention(nn.Module):
         q = (self.q_proj(query) * hd ** -0.5).reshape(b, t, heads, hd).transpose(1, 2)
         k = self.k_proj(key).reshape(b, s, heads, hd).transpose(1, 2)
         v = self.v_proj(value).reshape(b, s, heads, hd).transpose(1, 2)
-        scores = torch.matmul(q, k.transpose(-1, -2))
-        if attn_bias is not None:
-            scores = scores + attn_bias.to(scores.dtype)
-        probs = torch.softmax(scores, dim=-1)
-        out = torch.matmul(probs, v).transpose(1, 2).reshape(b, t, c)
-        return self.out_proj(out)
+        if mask is not None:
+            out = masked_attention(q.contiguous(), k.contiguous(), v.contiguous(), mask)
+        else:
+            probs = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), dim=-1)
+            out = torch.matmul(probs, v)
+        return self.out_proj(out.transpose(1, 2).reshape(b, t, c))
 
 
 class MaskPredictor(nn.Module):
     """3-layer MLP mask embedder + einsum with pixel embeddings; also emits
-    the attention bias for the next layer (HF:2008-2023)."""
+    the attention mask for the next layer (HF:2008-2023)."""
 
     def __init__(self, config: Mask2FormerConfig):
         super().__init__()
@@ -71,7 +73,8 @@ class MaskPredictor(nn.Module):
 
     def forward(self, hidden_states, pixel_embeddings, attn_target_hw):
         """hidden_states: (B, Q, C); pixel_embeddings: (B, H, W, Cmask) NHWC.
-        Returns (mask_logits (B, Q, H, W), attn_bias (B, 1, Q, T))."""
+        Returns (mask_logits (B, Q, H, W), attn_mask bool (B, 1, Q, T),
+        True = blocked)."""
         x = F.relu(self.mask_embedder_0(hidden_states))
         x = F.relu(self.mask_embedder_1(x))
         x = self.mask_embedder_2(x)
@@ -82,9 +85,7 @@ class MaskPredictor(nn.Module):
         # all-masked-row escape: a row with every position masked attends
         # everywhere (HF:1880-1882)
         masked = masked & ~masked.all(dim=-1, keepdim=True)
-        attn_bias = torch.zeros(masked.shape, dtype=mask_logits.dtype, device=masked.device)
-        attn_bias.masked_fill_(masked, NEG_INF)
-        return mask_logits, attn_bias[:, None]  # broadcast over heads
+        return mask_logits, masked[:, None]  # broadcast over heads
 
 
 class DecoderLayer(nn.Module):
@@ -96,6 +97,7 @@ class DecoderLayer(nn.Module):
         if config.activation_function not in ('relu', 'gelu'):
             raise ValueError(config.activation_function)
         self.activation = config.activation_function
+        self.dropout = config.dropout
         self.cross_attn = MultiheadAttention(dim, config.num_attention_heads)
         self.cross_attn_layer_norm = nn.LayerNorm(dim, eps=1e-5)
         self.self_attn = MultiheadAttention(dim, config.num_attention_heads)
@@ -104,8 +106,11 @@ class DecoderLayer(nn.Module):
         self.fc2 = nn.Linear(config.dim_feedforward, dim)
         self.final_layer_norm = nn.LayerNorm(dim, eps=1e-5)
 
-    def forward(self, hidden_states, key_feats, key_pos, query_pos, attn_bias):
-        x = self.cross_attn(hidden_states + query_pos, key_feats + key_pos, key_feats, attn_bias)
+    def forward(self, hidden_states, key_feats, key_pos, query_pos, attn_mask):
+        if self.training and self.dropout:
+            raise NotImplementedError(f'dropout {self.dropout} is not ported: the '
+                                      'masked-attention kernel has none')
+        x = self.cross_attn(hidden_states + query_pos, key_feats + key_pos, key_feats, attn_mask)
         x = self.cross_attn_layer_norm(hidden_states + x)
         y = self.self_attn(x + query_pos, x + query_pos, x)
         x = self.self_attn_layer_norm(x + y)
@@ -157,16 +162,16 @@ class TransformerModule(nn.Module):
         hidden_states = self.queries_features[None].expand(b, -1, -1)
 
         inter = self.layernorm(hidden_states)
-        pred_mask, attn_bias = self.mask_predictor(inter, mask_features, size_list[0])
+        pred_mask, attn_mask = self.mask_predictor(inter, mask_features, size_list[0])
         intermediate, mask_logits_all = [inter], [pred_mask]
 
         for idx in range(cfg.decoder_layers - 1):
             level = idx % nl
             hidden_states = getattr(self, f'layer_{idx}')(
-                hidden_states, key_feats[level], key_pos[level], query_pos, attn_bias,
+                hidden_states, key_feats[level], key_pos[level], query_pos, attn_mask,
             )
             inter = self.layernorm(hidden_states)
-            pred_mask, attn_bias = self.mask_predictor(
+            pred_mask, attn_mask = self.mask_predictor(
                 inter, mask_features, size_list[(idx + 1) % nl]
             )
             intermediate.append(inter)

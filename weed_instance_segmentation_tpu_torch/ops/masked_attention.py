@@ -1,0 +1,116 @@
+"""Masked cross-attention of the decoder: CUDA kernel (forward and backward)
+and plain version.
+
+Port of the Pallas TPU kernel ``tools/ab_masked_attn.py::
+pallas_masked_attention``: per (batch, head)::
+
+    O = softmax(Q Kᵀ + bias) V,    bias = −1e9 where mask, 0 elsewhere
+
+with q (B, H, Q, D) already scaled by D^-0.5, k/v (B, H, S, D) and the
+boolean mask (B, 1, Q, S), True = blocked, shared over heads. The mask is the
+support of the additive bias the Pallas kernel and the JAX decoder take
+(``models/transformer_decoder.py::MaskPredictor``); the kernel reads it as one
+byte per score and adds exactly −1e9 in float32, so it computes the same
+function. The mask takes no gradient (it comes from ``sigmoid < 0.5``).
+
+A CUDA tensor goes to ``csrc/masked_attention.cu`` through a
+``torch.autograd.Function`` whose backward launches the backward kernels; a
+CPU tensor goes to :func:`masked_attention_plain` under autograd. There is no
+fallback. Each forward launch adds one to ``masked_attention.launches``, each
+backward to ``masked_attention.backward_launches``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from weed_instance_segmentation_tpu_torch.ops.cuda_build import (
+    check_attention_inputs, entry_point, launch,
+)
+
+_LIBRARY = 'masked_attention'
+HEAD_DIMS = (16, 32, 64)
+MAX_QUERIES = 512
+MASKED_BIAS = -1e9
+
+
+def masked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           mask: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version: scores + additive bias → softmax → PV, in
+    float32, returned in ``q``'s dtype."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    bias = torch.zeros(mask.shape, dtype=torch.float32, device=mask.device)
+    scores = scores + bias.masked_fill_(mask, MASKED_BIAS)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.matmul(probs, v.float()).to(q.dtype)
+
+
+def _check(q, k, v, mask) -> None:
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] \
+            or k.shape[3] != q.shape[3]:
+        raise ValueError(f'q must be (B, H, Q, D) and k/v (B, H, S, D), got '
+                         f'{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}')
+    b, _, nq, _ = q.shape
+    if mask.dtype != torch.bool or mask.shape != (b, 1, nq, k.shape[2]):
+        raise ValueError(f'mask must be bool (B, 1, Q, S) = {(b, 1, nq, k.shape[2])}, '
+                         f'got {mask.dtype} {tuple(mask.shape)}')
+
+
+def _check_kernel(q, k, v, mask) -> None:
+    check_attention_inputs(q, k, v, [mask], HEAD_DIMS)
+    if q.shape[2] > MAX_QUERIES or k.shape[2] < 1:
+        raise ValueError(f'the kernel takes at most {MAX_QUERIES} queries and at least one '
+                         f'key, got q {tuple(q.shape)}, k {tuple(k.shape)}')
+
+
+class _MaskedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        b, heads, nq, head_dim = q.shape
+        out = torch.empty_like(q)
+        lse = torch.empty((b, heads, nq), dtype=torch.float32, device=q.device)
+        launch(entry_point(_LIBRARY, 'wis_masked_attention_fwd', 6, 6), q.device,
+               f'masked attention forward for q {tuple(q.shape)}',
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+               lse.data_ptr(), b, heads, nq, k.shape[2], head_dim, int(q.dtype == torch.bfloat16))
+        masked_attention.launches += 1
+        ctx.save_for_backward(q, k, v, out, lse, mask)
+        ctx.mark_non_differentiable(lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, out, lse, mask = ctx.saved_tensors
+        grad_out = grad_out.to(q.dtype).contiguous()
+        b, heads, nq, head_dim = q.shape
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        delta = torch.empty_like(lse)
+        launch(entry_point(_LIBRARY, 'wis_masked_attention_bwd', 11, 6), q.device,
+               f'masked attention backward for q {tuple(q.shape)}',
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
+               lse.data_ptr(), mask.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+               delta.data_ptr(), b, heads, nq, k.shape[2], head_dim,
+               int(q.dtype == torch.bfloat16))
+        masked_attention.backward_launches += 1
+        return dq, dk, dv, None
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """q (B, H, Q, D) pre-scaled, k/v (B, H, S, D), mask bool (B, 1, Q, S)
+    (True = blocked; no row fully blocked) → (B, H, Q, D) in q's dtype.
+
+    On CUDA tensors this launches the kernel (q/k/v float32 or bfloat16,
+    contiguous, D in {16, 32, 64}, Q ≤ 512) and, under autograd, its backward
+    kernels. On CPU tensors it runs :func:`masked_attention_plain`."""
+    _check(q, k, v, mask)
+    if q.device.type == 'cpu':
+        return masked_attention_plain(q, k, v, mask)
+    if q.device.type != 'cuda':
+        raise ValueError(f'no kernel for device {q.device}')
+    _check_kernel(q, k, v, mask)
+    return _MaskedAttention.apply(q, k, v, mask)
+
+
+masked_attention.launches = 0
+masked_attention.backward_launches = 0

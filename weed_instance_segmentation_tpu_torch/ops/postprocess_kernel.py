@@ -21,14 +21,11 @@ within rounding of zero.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import numpy as np
 import torch
 
 from weed_instance_segmentation_tpu_torch.ops.constants import device_constant
-from weed_instance_segmentation_tpu_torch.ops.cuda_build import load_library
+from weed_instance_segmentation_tpu_torch.ops.cuda_build import entry_point, launch
 from weed_instance_segmentation_tpu_torch.ops.resize import (
     _bilinear_weights, bilinear_resize_matrix,
 )
@@ -77,14 +74,6 @@ def fused_upsample_stats_plain(mask_logits: torch.Tensor, score_hw: tuple[int, i
     return sig_sum, pos_cnt, pos.to(torch.int8)
 
 
-@functools.cache
-def _launcher():
-    fn = load_library(_LIBRARY).wis_postprocess_stats
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _check(mask_logits: torch.Tensor, score_hw: tuple[int, int]) -> None:
     if mask_logits.dtype != torch.float32:
         raise TypeError(f'mask_logits must be float32, got {mask_logits.dtype}')
@@ -112,7 +101,6 @@ def fused_upsample_stats(mask_logits: torch.Tensor, score_hw: tuple[int, int] = 
     if mask_logits.device.type != 'cuda':
         raise ValueError(f'no kernel for device {mask_logits.device}')
 
-    launch = _launcher()
     b, q, hm, wm = mask_logits.shape
     sh, sw = score_hw
     dev = mask_logits.device
@@ -123,12 +111,10 @@ def fused_upsample_stats(mask_logits: torch.Tensor, score_hw: tuple[int, int] = 
     sig_sum = torch.empty((b, q), dtype=torch.float32, device=dev)
     pos_cnt = torch.empty((b, q), dtype=torch.float32, device=dev)
     bins = torch.empty((b, q, sh, sw), dtype=torch.int8, device=dev)
-    with torch.cuda.device(dev):
-        err = launch(mask_logits.data_ptr(), y_idx.data_ptr(), y_w.data_ptr(), x_idx.data_ptr(),
-                 x_w.data_ptr(), sig_sum.data_ptr(), pos_cnt.data_ptr(), bins.data_ptr(),
-                 b * q, hm, wm, sh, sw, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'{_LIBRARY} kernel launch failed: CUDA error {err}')
+    launch(entry_point(_LIBRARY, 'wis_postprocess_stats', 8, 5), dev, f'{_LIBRARY} kernel',
+           mask_logits.data_ptr(), y_idx.data_ptr(), y_w.data_ptr(), x_idx.data_ptr(),
+           x_w.data_ptr(), sig_sum.data_ptr(), pos_cnt.data_ptr(), bins.data_ptr(),
+           b * q, hm, wm, sh, sw)
     fused_upsample_stats.launches += 1
     return sig_sum, pos_cnt, bins
 

@@ -1,0 +1,136 @@
+"""Swin window attention: CUDA kernel (forward and backward) and plain version.
+
+Port of the Pallas TPU kernel ``tools/ab_window_attn.py::
+pallas_window_attention`` with the shifted-window mask added (the Pallas
+kernel lacks it). Per window ``w`` and head ``h``::
+
+    O = softmax(Q Kᵀ / sqrt(D) + rel_bias[h] + attn_mask[w % nW_img]) V
+
+q/k/v are (NW, H, T, D) with the windows in the order of
+``models/swin.py::window_partition`` (image-major), so window ``w`` belongs to
+image ``w // nW_img`` and takes mask ``w % nW_img``.
+
+A CUDA tensor goes to ``csrc/window_attention.cu`` through a
+``torch.autograd.Function`` whose backward is the hand-written backward
+kernel (dQ, dK, dV, and dBias summed over windows); a CPU tensor goes to
+:func:`window_attention_plain` under autograd. There is no fallback: on a
+CUDA tensor the wrapper launches the kernels or raises. Each launch adds one
+to ``window_attention.launches`` (forward) or
+``window_attention.backward_launches``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from weed_instance_segmentation_tpu_torch.ops.cuda_build import (
+    check_attention_inputs, entry_point, launch,
+)
+
+_LIBRARY = 'window_attention'
+HEAD_DIMS = (16, 32, 64)
+MAX_TOKENS = 256
+
+
+def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           rel_bias: torch.Tensor,
+                           attn_mask: torch.Tensor | None) -> torch.Tensor:
+    """The plain PyTorch version: the matmul + softmax body of
+    ``WindowAttention.forward``, computed in float32 and returned in ``q``'s
+    dtype."""
+    nw, heads, tokens, head_dim = q.shape
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(head_dim)
+    scores = scores + rel_bias.float()[None]
+    if attn_mask is not None:
+        n_img_windows = attn_mask.shape[0]
+        scores = scores.reshape(-1, n_img_windows, heads, tokens, tokens)
+        scores = scores + attn_mask.float()[None, :, None]
+        scores = scores.reshape(nw, heads, tokens, tokens)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.matmul(probs, v.float()).to(q.dtype)
+
+
+def _check(q, k, v, rel_bias, attn_mask) -> None:
+    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f'q/k/v must share one (NW, H, T, D) shape, got '
+                         f'{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}')
+    nw, heads, tokens, _ = q.shape
+    if rel_bias.shape != (heads, tokens, tokens):
+        raise ValueError(f'rel_bias must be (H, T, T) = {(heads, tokens, tokens)}, '
+                         f'got {tuple(rel_bias.shape)}')
+    if attn_mask is not None and (attn_mask.ndim != 3 or attn_mask.shape[1:] != (tokens, tokens)
+                                  or nw % attn_mask.shape[0]):
+        raise ValueError(f'attn_mask must be (nW_img, T, T) with nW_img dividing {nw}, '
+                         f'got {tuple(attn_mask.shape)}')
+
+
+def _check_kernel(q, k, v, rel_bias, attn_mask) -> None:
+    extra = [rel_bias] + ([] if attn_mask is None else [attn_mask])
+    check_attention_inputs(q, k, v, extra, HEAD_DIMS)
+    if q.shape[2] > MAX_TOKENS:
+        raise ValueError(f'the kernel takes at most {MAX_TOKENS} tokens, got {tuple(q.shape)}')
+    if any(t.dtype != torch.float32 for t in extra):
+        raise TypeError('rel_bias and attn_mask must be float32')
+
+
+class _WindowAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, rel_bias, attn_mask):
+        nw, heads, tokens, head_dim = q.shape
+        out = torch.empty_like(q)
+        lse = torch.empty((nw, heads, tokens), dtype=torch.float32, device=q.device)
+        n_img = 1 if attn_mask is None else attn_mask.shape[0]
+        launch(entry_point(_LIBRARY, 'wis_window_attention_fwd', 7, 6), q.device,
+               f'window attention forward for q {tuple(q.shape)}',
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_bias.data_ptr(),
+               None if attn_mask is None else attn_mask.data_ptr(), out.data_ptr(),
+               lse.data_ptr(), nw, heads, tokens, head_dim, n_img, int(q.dtype == torch.bfloat16))
+        window_attention.launches += 1
+        ctx.save_for_backward(q, k, v, out, lse, rel_bias, attn_mask)
+        ctx.mark_non_differentiable(lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, out, lse, rel_bias, attn_mask = ctx.saved_tensors
+        grad_out = grad_out.to(q.dtype).contiguous()
+        nw, heads, tokens, head_dim = q.shape
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        dbias = torch.zeros((heads, tokens, tokens), dtype=torch.float32, device=q.device)
+        n_img = 1 if attn_mask is None else attn_mask.shape[0]
+        launch(entry_point(_LIBRARY, 'wis_window_attention_bwd', 12, 6), q.device,
+               f'window attention backward for q {tuple(q.shape)}',
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
+               lse.data_ptr(), rel_bias.data_ptr(),
+               None if attn_mask is None else attn_mask.data_ptr(), dq.data_ptr(),
+               dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), nw, heads, tokens, head_dim,
+               n_img, int(q.dtype == torch.bfloat16))
+        window_attention.backward_launches += 1
+        return dq, dk, dv, dbias, None
+
+
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     rel_bias: torch.Tensor,
+                     attn_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """(NW, H, T, D) q/k/v, (H, T, T) relative-position bias and an optional
+    (nW_img, T, T) shift mask → (NW, H, T, D) in q's dtype.
+
+    On CUDA tensors this launches the kernel (q/k/v float32 or bfloat16,
+    contiguous, D in {16, 32, 64}, T ≤ 256; rel_bias and attn_mask float32)
+    and its backward kernel under autograd; the mask takes no gradient. On CPU
+    tensors it runs :func:`window_attention_plain`."""
+    _check(q, k, v, rel_bias, attn_mask)
+    if q.device.type == 'cpu':
+        return window_attention_plain(q, k, v, rel_bias, attn_mask)
+    if q.device.type != 'cuda':
+        raise ValueError(f'no kernel for device {q.device}')
+    _check_kernel(q, k, v, rel_bias, attn_mask)
+    if attn_mask is not None and attn_mask.requires_grad:
+        raise ValueError('attn_mask is a constant: it takes no gradient')
+    return _WindowAttention.apply(q, k, v, rel_bias, attn_mask)
+
+
+window_attention.launches = 0
+window_attention.backward_launches = 0
