@@ -8,11 +8,15 @@ Phases, each of which must pass (the script exits non-zero on any failure):
 2. build the three CUDA libraries from ``weed_instance_segmentation_tpu_torch/
    csrc`` (one ``nvcc`` each, started together, into the package's ``build/``);
 3. each kernel against its plain PyTorch version, with times (CUDA events,
-   medians, in turns with the plain version and one PyTorch library call):
+   medians, in turns with the plain version and one PyTorch library call;
+   and each one's device-busy time per call from a ``torch.profiler`` trace,
+   which leaves out the host's time between launches):
    the post-process kernel at the serving shape; window attention forward
    and backward at Swin-L stage 1, training batch 2 (NW 578, H 6, T 144,
    D 32), with and without the shift mask, f32 and bf16; masked attention
-   forward and backward at B 2, H 8, Q 200, D 32, S in {10000, 2500, 625};
+   forward and backward at B 2, H 8, Q 200, D 32, S in {10000, 2500, 625}
+   (f32 on the CUDA-core kernels, bf16 on the tensor-core backward), each
+   level's times under ``by_s`` in the summary;
 4. serving: Swin-L Mask2Former, 800², batch 4, bf16, random seeded weights;
    3 requests of uint8 (4, 1024, 1024, 3) through ``make_serving_fn``; each
    must launch 24 window-attention, 9 masked-attention and 1 post-process
@@ -42,6 +46,7 @@ import functools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -133,6 +138,33 @@ def timed_in_turns(fns: dict, runs: int = TIMED_RUNS) -> dict:
     return {name: statistics.median(ts) for name, ts in times.items()}
 
 
+def device_split(fn, runs: int = 10) -> collections.Counter:
+    """Device-busy ms per call of ``fn`` by kernel (copies and fills
+    included), from a ``torch.profiler`` trace of ``runs`` calls. Unlike
+    ``time_ms`` it leaves out the host's time between launches."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'trace.json')
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)['traceEvents']
+    split = collections.Counter()
+    for e in events:
+        if e.get('ph') == 'X' and e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset'):
+            split[e['name']] += e['dur'] / 1e3 / runs
+    return split
+
+
+def device_ms(fn, runs: int = 10) -> float:
+    """Device-busy ms per call of ``fn`` (see ``device_split``)."""
+    return sum(device_split(fn, runs).values())
+
+
 def bound(bytes_moved: float, flops: float, dtype: torch.dtype) -> dict:
     """The least time the card could take: bytes over the HBM rate or
     operations over the peak for the input type, whichever is larger."""
@@ -188,8 +220,13 @@ def phase_postprocess_kernel(dev: torch.device) -> dict:
     log(f'post-process kernel {t["kernel"]:.4f} ms, plain {t["plain"]:.4f} ms (medians of '
         f'{TIMED_RUNS}); moves {moved / 1e6:.1f} MB = {moved / t["kernel"] / 1e6:.1f} GB/s')
     # 4 taps x 2 flops per output pixel, plus the sigmoid and the sums
+    dev_ms = {name: device_ms(lambda fn=fn: fn(logits, SCORE_RESOLUTION))
+              for name, fn in (('kernel', fused_upsample_stats),
+                               ('plain', fused_upsample_stats_plain))}
     return {'max_abs_err': err.max().item(), 'ms': t['kernel'], 'plain_ms': t['plain'],
-            **bound(moved, 12 * out_px, torch.float32), 'library_ms': None}
+            **bound(moved, 12 * out_px, torch.float32), 'library_ms': None,
+            'device_ms': dev_ms['kernel'], 'plain_device_ms': dev_ms['plain'],
+            'library_device_ms': None}
 
 
 def _rel_errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -224,7 +261,8 @@ def _check_against_plain(name, kernel, plain, qkv, extra, grad_extra, consts, dt
 def _time_fwd_bwd(kernel, plain, library, inputs, consts, lib_args) -> dict:
     """Median ms of the forward and of the backward (``autograd.grad`` over a
     kept graph, gradients of every tensor in ``inputs``) for the kernel, the
-    plain version and the library call (on q, k, v only, with ``lib_args``)."""
+    plain version and the library call (on q, k, v only, with ``lib_args``),
+    and under ``device`` each one's device-busy ms per call."""
     def backward(fn, args):
         ins = [t.detach().requires_grad_(True) for t in args]
         out = fn(*ins)
@@ -233,17 +271,47 @@ def _time_fwd_bwd(kernel, plain, library, inputs, consts, lib_args) -> dict:
 
     fns = {'plain': lambda *a: plain(*a, *consts), 'kernel': lambda *a: kernel(*a, *consts)}
     lib = lambda q_, k_, v_: library(q_, k_, v_, *lib_args)  # noqa: E731
-    fwd = timed_in_turns({**{n: functools.partial(f, *inputs) for n, f in fns.items()},
-                          'library': functools.partial(lib, *inputs[:3])})
-    bwd = timed_in_turns({**{n: backward(f, inputs) for n, f in fns.items()},
-                          'library': backward(lib, inputs[:3])})
-    return {'fwd': fwd, 'bwd': bwd}
+    calls = {'fwd': {**{n: functools.partial(f, *inputs) for n, f in fns.items()},
+                     'library': functools.partial(lib, *inputs[:3])},
+             'bwd': {**{n: backward(f, inputs) for n, f in fns.items()},
+                     'library': backward(lib, inputs[:3])}}
+    result = {}
+    for phase, c in calls.items():
+        split = device_split(c['kernel'])
+        log(f'  {phase} kernel launches, device ms per call: '
+            + ', '.join(f'{kernel_name(k)} {ms:.4f}' for k, ms in split.most_common()))
+        result[phase] = {**timed_in_turns(c), 'device': {
+            'kernel': sum(split.values()), 'plain': device_ms(c['plain']),
+            'library': device_ms(c['library'])}}
+    return result
+
+
+def kernel_name(key: str) -> str:
+    """A kernel's function name from the profiler's signature."""
+    name = re.search(r'(\w+)(<[^()]*>)?\(', key)
+    return name.group(1) if name else key[:60]
+
+
+def _summary(t: dict, bound_: dict, err: float) -> dict:
+    """A kernel's entry of the summary line from one phase of
+    ``_time_fwd_bwd``."""
+    dev = t['device']
+    return {'max_abs_err': err, 'ms': t['kernel'], 'plain_ms': t['plain'], **bound_,
+            'library_ms': t['library'], 'device_ms': dev['kernel'],
+            'plain_device_ms': dev['plain'], 'library_device_ms': dev['library']}
 
 
 def _sdpa(scale):
     def call(q, k, v, attn_mask):
         return F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, scale=scale)
     return call
+
+
+def _timing_line(what: str, t: dict, bound_: dict) -> str:
+    dev = t['device']
+    return (f'  {what}: kernel {t["kernel"]:.4f} ms, plain {t["plain"]:.4f} ms, SDPA '
+            f'{t["library"]:.4f} ms; device busy {dev["kernel"]:.4f} / {dev["plain"]:.4f} / '
+            f'{dev["library"]:.4f} ms; bound {bound_["bound_ms"]:.4f} ms ({bound_["bound_by"]})')
 
 
 def phase_window_attention(dev: torch.device) -> dict:
@@ -276,25 +344,17 @@ def phase_window_attention(dev: torch.device) -> dict:
     bwd_bound = bound(8 * qkv_bytes + const_bytes + lse_bytes + heads * t * t * 4,
                       10 * pair_flops, torch.bfloat16)
     for phase in ('fwd', 'bwd'):
-        tt = t_ms[phase]
-        b_ = fwd_bound if phase == 'fwd' else bwd_bound
-        log(f'  {phase} bf16 shifted: kernel {tt["kernel"]:.4f} ms, plain {tt["plain"]:.4f} ms, '
-            f'SDPA {tt["library"]:.4f} ms, bound {b_["bound_ms"]:.4f} ms ({b_["bound_by"]})')
+        log(_timing_line(f'{phase} bf16 shifted', t_ms[phase],
+                         fwd_bound if phase == 'fwd' else bwd_bound))
     err_fwd, err_bwd = errs[torch.bfloat16, True]
-    return {
-        'window_attention_fwd': {'max_abs_err': err_fwd, 'ms': t_ms['fwd']['kernel'],
-                                 'plain_ms': t_ms['fwd']['plain'], **fwd_bound,
-                                 'library_ms': t_ms['fwd']['library']},
-        'window_attention_bwd': {'max_abs_err': err_bwd, 'ms': t_ms['bwd']['kernel'],
-                                 'plain_ms': t_ms['bwd']['plain'], **bwd_bound,
-                                 'library_ms': t_ms['bwd']['library']},
-    }
+    return {'window_attention_fwd': _summary(t_ms['fwd'], fwd_bound, err_fwd),
+            'window_attention_bwd': _summary(t_ms['bwd'], bwd_bound, err_bwd)}
 
 
 def phase_masked_attention(dev: torch.device) -> dict:
     """Decoder cross-attention at B 2, H 8, Q 200, D 32 for the three levels."""
     b, heads, nq, d = TRAIN_BATCH, 8, 200, 32
-    result = {}
+    levels = {'fwd': {}, 'bwd': {}}
     for s in (10000, 2500, 625):
         g = torch.Generator(device=dev).manual_seed(s)
         q = torch.randn((b, heads, nq, d), generator=g, device=dev) * d ** -0.5
@@ -317,22 +377,12 @@ def phase_masked_attention(dev: torch.device) -> dict:
                           torch.bfloat16)
         bwd_bound = bound(4 * q_bytes + 4 * kv_bytes + mask_bytes + lse_bytes, 10 * pair_flops,
                           torch.bfloat16)
-        for phase, b_ in (('fwd', fwd_bound), ('bwd', bwd_bound)):
-            tt = t_ms[phase]
-            log(f'  {phase} bf16 S={s}: kernel {tt["kernel"]:.4f} ms, plain {tt["plain"]:.4f} ms, '
-                f'SDPA {tt["library"]:.4f} ms, bound {b_["bound_ms"]:.4f} ms ({b_["bound_by"]})')
-        if s == 10000:  # the summary line reports the largest level
-            result = {
-                'masked_attention_fwd': {'max_abs_err': errs[torch.bfloat16][0],
-                                         'ms': t_ms['fwd']['kernel'],
-                                         'plain_ms': t_ms['fwd']['plain'], **fwd_bound,
-                                         'library_ms': t_ms['fwd']['library']},
-                'masked_attention_bwd': {'max_abs_err': errs[torch.bfloat16][1],
-                                         'ms': t_ms['bwd']['kernel'],
-                                         'plain_ms': t_ms['bwd']['plain'], **bwd_bound,
-                                         'library_ms': t_ms['bwd']['library']},
-            }
-    return result
+        for i, (phase, b_) in enumerate((('fwd', fwd_bound), ('bwd', bwd_bound))):
+            log(_timing_line(f'{phase} bf16 S={s}', t_ms[phase], b_))
+            levels[phase][s] = _summary(t_ms[phase], b_, errs[torch.bfloat16][i])
+    # the summary line reports the largest level, and every level under by_s
+    return {f'masked_attention_{phase}': {**by_s[10000], 'by_s': by_s}
+            for phase, by_s in levels.items()}
 
 
 def check_result(res: dict, batch: int, hw: tuple, num_queries: int) -> None:
@@ -531,6 +581,12 @@ def phase_training(dev: torch.device, cache_dir: str) -> dict:
     log('device ms by kernel, top 15:')
     for key, ms in by_kernel.most_common(15):
         log(f'  {ms:9.2f}  {key[:110]}')
+    masked = collections.Counter()
+    for key, ms in by_kernel.items():
+        if 'masked_attention' in key:
+            masked[kernel_name(key)] += ms
+    log('masked-attention kernels, device ms: '
+        + ', '.join(f'{name} {ms:.2f}' for name, ms in masked.most_common()))
     del model, optimizer, step, batches
     torch.cuda.empty_cache()
     return launches
@@ -653,8 +709,8 @@ def main() -> int:
     for name in LIBRARIES:
         seconds, output = build_log.get(name, (0.0, 'already built'))
         log(f'{name}: {seconds:.2f} s')
-        log('\n'.join(line for line in output.splitlines()
-                      if 'registers' in line or 'spill' in line or 'error' in line))
+        log('\n'.join(line for line in output.splitlines() if any(
+            w in line for w in ('entry function', 'registers', 'spill', 'error'))))
 
     timing = {'fused_upsample_stats': phase_postprocess_kernel(dev)}
     timing.update(phase_window_attention(dev))

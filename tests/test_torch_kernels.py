@@ -14,7 +14,7 @@ import torch
 
 from weed_instance_segmentation_tpu_torch.models.swin import shifted_window_attn_mask
 from weed_instance_segmentation_tpu_torch.ops.masked_attention import (
-    masked_attention, masked_attention_plain,
+    DQ_BLOCKS_PER_SM, KEY_TILE, ROW_TILE, dq_chunks, masked_attention, masked_attention_plain,
 )
 from weed_instance_segmentation_tpu_torch.ops.postprocess_kernel import (
     bilinear_taps, fused_upsample_stats, fused_upsample_stats_plain, upsample_plain,
@@ -163,8 +163,23 @@ def test_window_attention_kernels_match_plain(cuda_device, case, shifted, dtype,
     assert max(errs.values()) <= tol, errs
 
 
-MASKED_CASES = {'small': (2, 2, 10, 40, 16), 'small-d64': (1, 3, 7, 100, 64)}
+MASKED_CASES = {'small': (2, 2, 10, 40, 16), 'small-d64': (1, 3, 7, 100, 64),
+                'q512-d64': (1, 2, 512, 300, 64), 'few-keys': (2, 2, 40, 5, 32)}
 MASKED_CASES.update({f'swin-l-s{s}': (2, 8, 200, s, 32) for s in (10000, 2500, 625)})
+
+
+def _masked_inputs(case, device, seed=3):
+    """q, k, v and a mask with 70 % of the scores blocked, the first query row
+    blocked entirely and then every all-blocked row freed (the decoder's
+    escape)."""
+    b, heads, nq, s, d = MASKED_CASES[case]
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((b, heads, nq, d), generator=g, device=device) * d ** -0.5
+    k, v = (torch.randn((b, heads, s, d), generator=g, device=device) for _ in range(2))
+    mask = torch.rand((b, 1, nq, s), generator=g, device=device) < 0.7
+    mask[:, :, 0] = True
+    mask &= ~mask.all(dim=-1, keepdim=True)
+    return q, k, v, mask
 
 
 @pytest.mark.cuda
@@ -174,13 +189,7 @@ MASKED_CASES.update({f'swin-l-s{s}': (2, 8, 200, s, 32) for s in (10000, 2500, 6
 def test_masked_attention_kernels_match_plain(cuda_device, case, dtype, tol):
     """O, dQ, dK and dV with 70 % of the scores masked (and the all-masked-row
     escape) within ``tol`` of the plain version's largest magnitude."""
-    b, heads, nq, s, d = MASKED_CASES[case]
-    g = torch.Generator(device=cuda_device).manual_seed(3)
-    q = torch.randn((b, heads, nq, d), generator=g, device=cuda_device) * d ** -0.5
-    k, v = (torch.randn((b, heads, s, d), generator=g, device=cuda_device) for _ in range(2))
-    mask = torch.rand((b, 1, nq, s), generator=g, device=cuda_device) < 0.7
-    mask[:, :, 0] = True
-    mask &= ~mask.all(dim=-1, keepdim=True)
+    q, k, v, mask = _masked_inputs(case, cuda_device)
     launches = masked_attention.launches, masked_attention.backward_launches
     errs = _kernel_vs_plain(masked_attention, masked_attention_plain, [q, k, v], [mask],
                             (0, 1, 2), dtype, 4)
@@ -200,3 +209,72 @@ def test_attention_wrappers_raise_on_shapes_the_kernels_do_not_take(cuda_device)
     with pytest.raises(ValueError, match='queries'):
         masked_attention(q, q, q, torch.zeros((1, 1, 600, 600), dtype=torch.bool,
                                               device=cuda_device))
+    # the bf16 kernels read 16-byte vectors: a view 2 bytes into its storage
+    q = torch.zeros(16 * 16 + 1, dtype=torch.bfloat16, device=cuda_device)[1:].view(1, 1, 16, 16)
+    with pytest.raises(ValueError, match='16-byte-aligned'):
+        masked_attention(q, q, q, torch.zeros((1, 1, 16, 16), dtype=torch.bool,
+                                              device=cuda_device))
+
+
+@pytest.mark.parametrize('batch_heads,nq,ns', [(16, 200, 10000), (16, 200, 2500), (16, 200, 625),
+                                               (4, 40, 5), (2, 512, 300), (1, 1, 1)])
+def test_dq_chunks_cover_every_key_tile_once(batch_heads, nq, ns):
+    """The bf16 dQ launch's key split (chunk c takes tiles [c·t, (c+1)·t) with
+    t = ceil(tiles / chunks)): every 64-key tile in exactly one chunk, at
+    least two tiles a chunk where there are two, and no more blocks than a
+    full card holds at once."""
+    tiles = -(-ns // KEY_TILE)
+    chunks = dq_chunks(batch_heads, nq, ns, 132)
+    assert 1 <= chunks <= tiles
+    per = -(-tiles // chunks)
+    covered = [t for c in range(chunks) for t in range(c * per, min((c + 1) * per, tiles))]
+    assert covered == list(range(tiles))
+    assert per >= min(2, tiles)
+    blocks = batch_heads * -(-nq // ROW_TILE)
+    assert chunks == 1 or chunks * blocks <= DQ_BLOCKS_PER_SM * 132
+
+
+def _tiled_bf16_backward(q, k, v, mask, dout, chunks):
+    """The bf16 backward kernels' arithmetic in float32 on the CPU: P from the
+    forward's log-sum-exp, Delta from the output rounded to bf16, P and dS
+    rounded to bf16 before the products that use them, dQ summed over key
+    chunks of whole 64-key tiles in chunk order, dK and dV over staged chunks
+    of 64 queries; every result rounded to bf16."""
+    bf = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    scores = q @ k.transpose(-1, -2) + torch.zeros(mask.shape).masked_fill_(mask, -1e9)
+    lse = torch.logsumexp(scores, dim=-1, keepdim=True)
+    out = bf(torch.softmax(scores, dim=-1) @ v)
+    delta = (dout * out).sum(-1, keepdim=True)
+    tiles, ns = -(-k.shape[2] // KEY_TILE), k.shape[2]
+    per = -(-tiles // chunks)
+    dq = torch.zeros_like(q)
+    for c in range(chunks):
+        sl = slice(c * per * KEY_TILE, min((c + 1) * per * KEY_TILE, ns))
+        p = torch.exp(scores[..., sl] - lse)
+        ds = bf(p * (dout @ v[:, :, sl].transpose(-1, -2) - delta))
+        dq = dq + ds @ k[:, :, sl]
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for c0 in range(0, q.shape[2], 64):
+        sl = slice(c0, c0 + 64)
+        p = torch.exp(scores[:, :, sl] - lse[:, :, sl])
+        ds = p * (dout[:, :, sl] @ v.transpose(-1, -2) - delta[:, :, sl])
+        dv = dv + bf(p).transpose(-1, -2) @ dout[:, :, sl]
+        dk = dk + bf(ds).transpose(-1, -2) @ q[:, :, sl]
+    return bf(dq), bf(dk), bf(dv)
+
+
+@pytest.mark.parametrize('case', ['small', 'few-keys', 'swin-l-s625'])
+def test_tiled_bf16_backward_arithmetic_matches_plain(case):
+    """The bf16 kernels' rounding and splitting, rehearsed on the CPU: within
+    the card test's 2e-2 of the plain float32 gradients on the same bf16
+    values."""
+    q, k, v, mask = (t.to(torch.bfloat16).float() if t.is_floating_point() else t
+                     for t in _masked_inputs(case, torch.device('cpu')))
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(4)).to(
+        torch.bfloat16).float()
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    masked_attention_plain(*ins, mask).backward(dout)
+    b, heads, nq, _ = q.shape
+    got = _tiled_bf16_backward(q, k, v, mask, dout, dq_chunks(b * heads, nq, k.shape[2], 132))
+    for g_, t in zip(got, ins):
+        assert ((g_ - t.grad).abs().max() / t.grad.abs().max()).item() <= 2e-2

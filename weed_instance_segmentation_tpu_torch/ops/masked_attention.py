@@ -14,10 +14,12 @@ byte per score and adds exactly −1e9 in float32, so it computes the same
 function. The mask takes no gradient (it comes from ``sigmoid < 0.5``).
 
 A CUDA tensor goes to ``csrc/masked_attention.cu`` through a
-``torch.autograd.Function`` whose backward launches the backward kernels; a
-CPU tensor goes to :func:`masked_attention_plain` under autograd. There is no
-fallback. Each forward launch adds one to ``masked_attention.launches``, each
-backward to ``masked_attention.backward_launches``.
+``torch.autograd.Function`` whose backward launches the backward kernels (in
+bfloat16 on tensor cores, with the dQ launch split over chunks of the keys
+into a float32 scratch that a last launch sums); a CPU tensor goes to
+:func:`masked_attention_plain` under autograd. There is no fallback. Each
+forward launch adds one to ``masked_attention.launches``, each backward to
+``masked_attention.backward_launches``.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ _LIBRARY = 'masked_attention'
 HEAD_DIMS = (16, 32, 64)
 MAX_QUERIES = 512
 MASKED_BIAS = -1e9
+KEY_TILE, ROW_TILE = 64, 128  # a bf16 dQ block's key tile and query rows
+DQ_BLOCKS_PER_SM = 2  # bf16 dQ blocks an SM holds at once (256 threads each)
 
 
 def masked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -61,6 +65,19 @@ def _check_kernel(q, k, v, mask) -> None:
     if q.shape[2] > MAX_QUERIES or k.shape[2] < 1:
         raise ValueError(f'the kernel takes at most {MAX_QUERIES} queries and at least one '
                          f'key, got q {tuple(q.shape)}, k {tuple(k.shape)}')
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError('the bfloat16 kernels read 16-byte vectors: q, k and v must start '
+                         'at 16-byte-aligned addresses')
+
+
+def dq_chunks(batch_heads: int, nq: int, ns: int, sms: int) -> int:
+    """How many chunks of the keys the bf16 dQ launch splits into: as many
+    (batch·head, 64-row, chunk) blocks as ``sms`` SMs hold at once
+    (``DQ_BLOCKS_PER_SM`` each; more would leave a second, partial wave), with
+    at least two 64-key tiles a chunk."""
+    key_tiles = -(-ns // KEY_TILE)
+    blocks = batch_heads * -(-nq // ROW_TILE)
+    return max(1, min(-(-key_tiles // 2), DQ_BLOCKS_PER_SM * sms // blocks))
 
 
 class _MaskedAttention(torch.autograd.Function):
@@ -82,15 +99,23 @@ class _MaskedAttention(torch.autograd.Function):
     def backward(ctx, grad_out):
         q, k, v, out, lse, mask = ctx.saved_tensors
         grad_out = grad_out.to(q.dtype).contiguous()
+        if grad_out.data_ptr() % 16:
+            grad_out = grad_out.clone()
         b, heads, nq, head_dim = q.shape
+        ns, bf16 = k.shape[2], q.dtype == torch.bfloat16
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         delta = torch.empty_like(lse)
-        launch(entry_point(_LIBRARY, 'wis_masked_attention_bwd', 11, 6), q.device,
+        chunks, dq_part = 0, None  # the f32 kernels take no key split
+        if bf16:
+            chunks = dq_chunks(b * heads, nq, ns,
+                               torch.cuda.get_device_properties(q.device).multi_processor_count)
+            dq_part = torch.empty((chunks, *q.shape), dtype=torch.float32, device=q.device)
+        launch(entry_point(_LIBRARY, 'wis_masked_attention_bwd', 12, 7), q.device,
                f'masked attention backward for q {tuple(q.shape)}',
                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
                lse.data_ptr(), mask.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-               delta.data_ptr(), b, heads, nq, k.shape[2], head_dim,
-               int(q.dtype == torch.bfloat16))
+               delta.data_ptr(), dq_part.data_ptr() if bf16 else None, b, heads, nq, ns,
+               head_dim, int(bf16), chunks)
         masked_attention.backward_launches += 1
         return dq, dk, dv, None
 
@@ -101,8 +126,8 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (True = blocked; no row fully blocked) → (B, H, Q, D) in q's dtype.
 
     On CUDA tensors this launches the kernel (q/k/v float32 or bfloat16,
-    contiguous, D in {16, 32, 64}, Q ≤ 512) and, under autograd, its backward
-    kernels. On CPU tensors it runs :func:`masked_attention_plain`."""
+    contiguous, D in {16, 32, 64}, Q ≤ 512; bfloat16 16-byte aligned) and,
+    under autograd, its backward kernels. On CPU tensors it runs :func:`masked_attention_plain`."""
     _check(q, k, v, mask)
     if q.device.type == 'cpu':
         return masked_attention_plain(q, k, v, mask)
