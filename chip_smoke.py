@@ -15,12 +15,16 @@ Phases, each of which must pass (the script exits non-zero on any failure):
    and backward at Swin-L stage 1, training batch 2 (NW 578, H 6, T 144,
    D 32), with and without the shift mask, f32 and bf16; masked attention
    forward and backward at B 2, H 8, Q 200, D 32, S in {10000, 2500, 625}
-   (f32 on the CUDA-core kernels, bf16 on the tensor-core backward), each
-   level's times under ``by_s`` in the summary;
+   (f32 on the CUDA-core kernels, bf16 on the tensor-core kernels, forward
+   and backward), each level's times under ``by_s`` in the summary, and the
+   bf16 forward at the serving batch (B 4, S 10000) under
+   ``serving_b4_s10000``;
 4. serving: Swin-L Mask2Former, 800², batch 4, bf16, random seeded weights;
    3 requests of uint8 (4, 1024, 1024, 3) through ``make_serving_fn``; each
    must launch 24 window-attention, 9 masked-attention and 1 post-process
-   forward kernels;
+   forward kernels; then one more request whose 9 decoder masked-attention
+   calls are recorded, each held against the plain version on its real
+   inputs and masks;
 5. training: Swin-L 800² batch 2, bf16 autocast over float32 parameters,
    gradient accumulation 2, remat, AdamW lr 5e-5, fed from a synthetic
    ``.npz`` cache through ``PreprocessedDataset`` → ``make_train_collate`` →
@@ -65,6 +69,7 @@ from weed_instance_segmentation_tpu_torch.engine.export import make_serving_fn
 from weed_instance_segmentation_tpu_torch.engine.model_utils import build_model
 from weed_instance_segmentation_tpu_torch.engine.steps import make_optimizer, make_train_step
 from weed_instance_segmentation_tpu_torch.losses.criterion import PointDraws
+from weed_instance_segmentation_tpu_torch.models import transformer_decoder
 from weed_instance_segmentation_tpu_torch.models.swin import shifted_window_attn_mask
 from weed_instance_segmentation_tpu_torch.ops.cuda_build import build_libraries, build_log
 from weed_instance_segmentation_tpu_torch.ops.masked_attention import (
@@ -138,26 +143,32 @@ def timed_in_turns(fns: dict, runs: int = TIMED_RUNS) -> dict:
     return {name: statistics.median(ts) for name, ts in times.items()}
 
 
-def device_split(fn, runs: int = 10) -> collections.Counter:
+def device_split(fn, runs: int = 10, attempts: int = 3) -> collections.Counter:
     """Device-busy ms per call of ``fn`` by kernel (copies and fills
     included), from a ``torch.profiler`` trace of ``runs`` calls. Unlike
-    ``time_ms`` it leaves out the host's time between launches."""
+    ``time_ms`` it leaves out the host's time between launches. The profiler
+    now and then returns a trace with no device events at all; such a trace
+    is taken again, up to ``attempts`` times in all, and then this raises."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, 'trace.json')
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)['traceEvents']
-    split = collections.Counter()
-    for e in events:
-        if e.get('ph') == 'X' and e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset'):
-            split[e['name']] += e['dur'] / 1e3 / runs
-    return split
+    for attempt in range(attempts):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, 'trace.json')
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)['traceEvents']
+        split = collections.Counter()
+        for e in events:
+            if e.get('ph') == 'X' and e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset'):
+                split[e['name']] += e['dur'] / 1e3 / runs
+        if split:
+            return split
+        log(f'  (profiler trace {attempt + 1} held no device events; tracing again)')
+    raise RuntimeError(f'{attempts} profiler traces held no device events')
 
 
 def device_ms(fn, runs: int = 10) -> float:
@@ -351,16 +362,25 @@ def phase_window_attention(dev: torch.device) -> dict:
             'window_attention_bwd': _summary(t_ms['bwd'], bwd_bound, err_bwd)}
 
 
+def masked_inputs(dev: torch.device, b: int, s: int, heads: int = 8, nq: int = 200,
+                  d: int = 32) -> tuple:
+    """Decoder cross-attention inputs in float32, seeded by ``s``: q scaled
+    by D^-0.5, k, v, and a mask with 70 % of the scores blocked and no row
+    fully blocked."""
+    g = torch.Generator(device=dev).manual_seed(s)
+    q = torch.randn((b, heads, nq, d), generator=g, device=dev) * d ** -0.5
+    k, v = (torch.randn((b, heads, s, d), generator=g, device=dev) for _ in range(2))
+    mask = torch.rand((b, 1, nq, s), generator=g, device=dev) < 0.7
+    mask &= ~mask.all(dim=-1, keepdim=True)
+    return q, k, v, mask
+
+
 def phase_masked_attention(dev: torch.device) -> dict:
     """Decoder cross-attention at B 2, H 8, Q 200, D 32 for the three levels."""
     b, heads, nq, d = TRAIN_BATCH, 8, 200, 32
     levels = {'fwd': {}, 'bwd': {}}
     for s in (10000, 2500, 625):
-        g = torch.Generator(device=dev).manual_seed(s)
-        q = torch.randn((b, heads, nq, d), generator=g, device=dev) * d ** -0.5
-        k, v = (torch.randn((b, heads, s, d), generator=g, device=dev) for _ in range(2))
-        mask = torch.rand((b, 1, nq, s), generator=g, device=dev) < 0.7
-        mask &= ~mask.all(dim=-1, keepdim=True)
+        q, k, v, mask = masked_inputs(dev, b, s, heads, nq, d)
         log(f'masked attention vs plain at B={b}, H={heads}, Q={nq}, S={s}, D={d}, '
             f'{mask.float().mean().item():.3f} masked:')
         errs = {dtype: _check_against_plain('masked', masked_attention, masked_attention_plain,
@@ -381,8 +401,32 @@ def phase_masked_attention(dev: torch.device) -> dict:
             log(_timing_line(f'{phase} bf16 S={s}', t_ms[phase], b_))
             levels[phase][s] = _summary(t_ms[phase], b_, errs[torch.bfloat16][i])
     # the summary line reports the largest level, and every level under by_s
-    return {f'masked_attention_{phase}': {**by_s[10000], 'by_s': by_s}
-            for phase, by_s in levels.items()}
+    result = {f'masked_attention_{phase}': {**by_s[10000], 'by_s': by_s}
+              for phase, by_s in levels.items()}
+    result['masked_attention_fwd']['serving_b4_s10000'] = _masked_forward_serving(dev)
+    return result
+
+
+def _masked_forward_serving(dev: torch.device) -> dict:
+    """The bf16 forward alone at the serving batch: B 4, H 8, Q 200, S 10000."""
+    b, heads, nq, s, d = SERVING_BATCH, 8, 200, 10000, 32
+    q, k, v, mask = masked_inputs(dev, b, s, heads, nq, d)
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    err, rel = _rel_errors(masked_attention(q, k, v, mask),
+                           masked_attention_plain(q.float(), k.float(), v.float(), mask))
+    log(f'masked attention forward at the serving batch B={b}, S={s}, bf16: out rel err '
+        f'{rel:.2e} (tolerance 0.02)')
+    check(rel <= 2e-2, f'masked forward at B {b}: {rel:.3e} beyond 0.02')
+    bias = torch.zeros(mask.shape, dtype=torch.bfloat16, device=dev).masked_fill_(mask, -1e9)
+    fns = {'plain': lambda: masked_attention_plain(q, k, v, mask),
+           'kernel': lambda: masked_attention(q, k, v, mask),
+           'library': lambda: _sdpa(1.0)(q, k, v, bias)}
+    t = {**timed_in_turns(fns), 'device': {name: device_ms(fn) for name, fn in fns.items()}}
+    q_bytes, kv_bytes = b * heads * nq * d * 2, b * heads * s * d * 2
+    bound_ = bound(2 * q_bytes + 2 * kv_bytes + b * nq * s + b * heads * nq * 4,
+                   4 * b * heads * nq * s * d, torch.bfloat16)
+    log(_timing_line(f'fwd bf16 B={b} S={s}', t, bound_))
+    return _summary(t, bound_, err)
 
 
 def check_result(res: dict, batch: int, hw: tuple, num_queries: int) -> None:
@@ -440,7 +484,31 @@ def phase_serving(dev: torch.device) -> dict:
         f'{REQUESTS * SERVING_BATCH / sum(latencies):.3f} img/s over {REQUESTS} requests, '
         f'median latency {1e3 * statistics.median(latencies):.1f} ms, '
         f'peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches {launches}')
-    del model, serve, requests
+
+    # one more request, its decoder's masked-attention calls recorded: the
+    # kernel against the plain version on the masks the decoder really makes
+    calls = []
+
+    def recording(q, k, v, mask):
+        out = masked_attention(q, k, v, mask)
+        calls.append((q, k, v, mask, out))
+        return out
+
+    transformer_decoder.masked_attention = recording
+    try:
+        serve(requests[1])
+    finally:
+        transformer_decoder.masked_attention = masked_attention
+    check(len(calls) == per_request['masked_attention_fwd'],
+          f'the recorded request made {len(calls)} masked-attention calls')
+    log('decoder masked attention of one request, kernel vs plain (f32 on the same bf16 values):')
+    with torch.inference_mode():
+        for i, (q, k, v, mask, out) in enumerate(calls):
+            _, rel = _rel_errors(out, masked_attention_plain(q.float(), k.float(), v.float(), mask))
+            log(f'  layer {i}: q {tuple(q.shape)}, S {k.shape[2]}, '
+                f'{mask.float().mean().item():.3f} of the scores blocked, out rel err {rel:.2e}')
+            check(rel <= 2e-2, f'decoder layer {i}: masked attention {rel:.3e} beyond 0.02')
+    del model, serve, requests, calls
     torch.cuda.empty_cache()
     return launches
 

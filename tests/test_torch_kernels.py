@@ -11,10 +11,11 @@ run on a machine that has only PyTorch and the CUDA toolkit:
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from weed_instance_segmentation_tpu_torch.models.swin import shifted_window_attn_mask
 from weed_instance_segmentation_tpu_torch.ops.masked_attention import (
-    DQ_BLOCKS_PER_SM, KEY_TILE, ROW_TILE, dq_chunks, masked_attention, masked_attention_plain,
+    BLOCKS_PER_SM, KEY_TILE, ROW_TILE, key_chunks, masked_attention, masked_attention_plain,
 )
 from weed_instance_segmentation_tpu_torch.ops.postprocess_kernel import (
     bilinear_taps, fused_upsample_stats, fused_upsample_stats_plain, upsample_plain,
@@ -164,14 +165,17 @@ def test_window_attention_kernels_match_plain(cuda_device, case, shifted, dtype,
 
 
 MASKED_CASES = {'small': (2, 2, 10, 40, 16), 'small-d64': (1, 3, 7, 100, 64),
-                'q512-d64': (1, 2, 512, 300, 64), 'few-keys': (2, 2, 40, 5, 32)}
+                'q512-d64': (1, 2, 512, 300, 64), 'few-keys': (2, 2, 40, 5, 32),
+                'one-key-rows': (2, 2, 40, 300, 32)}
 MASKED_CASES.update({f'swin-l-s{s}': (2, 8, 200, s, 32) for s in (10000, 2500, 625)})
+MASKED_CASES['swin-l-serving'] = (4, 8, 200, 10000, 32)
 
 
 def _masked_inputs(case, device, seed=3):
     """q, k, v and a mask with 70 % of the scores blocked, the first query row
     blocked entirely and then every all-blocked row freed (the decoder's
-    escape)."""
+    escape). In ``one-key-rows`` every odd row sees one key, in the last
+    64-key tile, so that every other key chunk of that row is all blocked."""
     b, heads, nq, s, d = MASKED_CASES[case]
     g = torch.Generator(device=device).manual_seed(seed)
     q = torch.randn((b, heads, nq, d), generator=g, device=device) * d ** -0.5
@@ -179,6 +183,10 @@ def _masked_inputs(case, device, seed=3):
     mask = torch.rand((b, 1, nq, s), generator=g, device=device) < 0.7
     mask[:, :, 0] = True
     mask &= ~mask.all(dim=-1, keepdim=True)
+    if case == 'one-key-rows':
+        rows = torch.arange(1, nq, 2, device=device)
+        mask[:, :, rows] = True
+        mask[:, :, rows, s - 1 - rows % 40] = False
     return q, k, v, mask
 
 
@@ -217,21 +225,23 @@ def test_attention_wrappers_raise_on_shapes_the_kernels_do_not_take(cuda_device)
 
 
 @pytest.mark.parametrize('batch_heads,nq,ns', [(16, 200, 10000), (16, 200, 2500), (16, 200, 625),
-                                               (4, 40, 5), (2, 512, 300), (1, 1, 1)])
+                                               (32, 200, 10000), (4, 40, 5), (2, 512, 300),
+                                               (4, 40, 300), (1, 1, 1), (1, 1, 9 * 64)])
 def test_dq_chunks_cover_every_key_tile_once(batch_heads, nq, ns):
-    """The bf16 dQ launch's key split (chunk c takes tiles [c·t, (c+1)·t) with
-    t = ceil(tiles / chunks)): every 64-key tile in exactly one chunk, at
-    least two tiles a chunk where there are two, and no more blocks than a
-    full card holds at once."""
+    """The bf16 forward's and dQ launch's key split (chunk c takes tiles
+    [c·t, (c+1)·t) with t = ceil(tiles / chunks)): every 64-key tile in
+    exactly one chunk, no chunk empty, at least two tiles a chunk where
+    there are two, and no more blocks than a full card holds at once."""
     tiles = -(-ns // KEY_TILE)
-    chunks = dq_chunks(batch_heads, nq, ns, 132)
+    chunks = key_chunks(batch_heads, nq, ns, 132)
     assert 1 <= chunks <= tiles
     per = -(-tiles // chunks)
-    covered = [t for c in range(chunks) for t in range(c * per, min((c + 1) * per, tiles))]
-    assert covered == list(range(tiles))
+    spans = [range(c * per, min((c + 1) * per, tiles)) for c in range(chunks)]
+    assert [t for span in spans for t in span] == list(range(tiles))
+    assert all(len(span) > 0 for span in spans)
     assert per >= min(2, tiles)
     blocks = batch_heads * -(-nq // ROW_TILE)
-    assert chunks == 1 or chunks * blocks <= DQ_BLOCKS_PER_SM * 132
+    assert chunks == 1 or chunks * blocks <= BLOCKS_PER_SM * 132
 
 
 def _tiled_bf16_backward(q, k, v, mask, dout, chunks):
@@ -263,7 +273,7 @@ def _tiled_bf16_backward(q, k, v, mask, dout, chunks):
     return bf(dq), bf(dk), bf(dv)
 
 
-@pytest.mark.parametrize('case', ['small', 'few-keys', 'swin-l-s625'])
+@pytest.mark.parametrize('case', ['small', 'few-keys', 'swin-l-s625', 'one-key-rows'])
 def test_tiled_bf16_backward_arithmetic_matches_plain(case):
     """The bf16 kernels' rounding and splitting, rehearsed on the CPU: within
     the card test's 2e-2 of the plain float32 gradients on the same bf16
@@ -275,6 +285,58 @@ def test_tiled_bf16_backward_arithmetic_matches_plain(case):
     ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
     masked_attention_plain(*ins, mask).backward(dout)
     b, heads, nq, _ = q.shape
-    got = _tiled_bf16_backward(q, k, v, mask, dout, dq_chunks(b * heads, nq, k.shape[2], 132))
+    got = _tiled_bf16_backward(q, k, v, mask, dout, key_chunks(b * heads, nq, k.shape[2], 132))
     for g_, t in zip(got, ins):
         assert ((g_ - t.grad).abs().max() / t.grad.abs().max()).item() <= 2e-2
+
+
+def _tiled_bf16_forward(q, k, v, mask, chunks):
+    """The bf16 forward kernels' arithmetic in float32 on the CPU: the keys
+    padded to whole 64-key tiles (a padded key scores −1e9 and its V row is
+    zero), each chunk of whole tiles walked 32 keys at a time with an online
+    max and sum, P rounded to bf16 before PV and the sum taken over the
+    unrounded P, the chunks merged in chunk order, O rounded to bf16.
+    Returns (O, lse)."""
+    bf = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    ns = k.shape[2]
+    tiles = -(-ns // KEY_TILE)
+    pad = tiles * KEY_TILE - ns
+    scores = q @ k.transpose(-1, -2) + torch.zeros(mask.shape).masked_fill_(mask, -1e9)
+    scores = F.pad(scores, (0, pad), value=-1e9)
+    v = F.pad(v, (0, 0, 0, pad))
+    per = -(-tiles // chunks)
+    parts = []
+    for c in range(chunks):
+        m = torch.full((*q.shape[:3], 1), -1e30)
+        l, acc = torch.zeros_like(m), torch.zeros_like(q)
+        for s0 in range(c * per * KEY_TILE, min((c + 1) * per * KEY_TILE, ns), 32):
+            s = scores[..., s0:s0 + 32]
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha, p = torch.exp(m - m_new), torch.exp(s - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + bf(p) @ v[:, :, s0:s0 + 32]
+            m = m_new
+        parts.append((m, l, acc))
+    m = torch.stack([m_c for m_c, _, _ in parts]).amax(0)
+    l = sum(l_c * torch.exp(m_c - m) for m_c, l_c, _ in parts)
+    out = sum(acc_c * torch.exp(m_c - m) for m_c, _, acc_c in parts) / l
+    return bf(out), (m + torch.log(l)).squeeze(-1)
+
+
+@pytest.mark.parametrize('case', ['small', 'few-keys', 'swin-l-s625', 'one-key-rows'])
+def test_tiled_bf16_forward_arithmetic_matches_plain(case):
+    """The bf16 forward's rounding, key split and (max, sum) merge, rehearsed
+    on the CPU: O within the card test's 2e-2 of the plain float32 output on
+    the same bf16 values, and lse within 1e-5 of the true log-sum-exp (the
+    backward recomputes P from it)."""
+    q, k, v, mask = (t.to(torch.bfloat16).float() if t.is_floating_point() else t
+                     for t in _masked_inputs(case, torch.device('cpu')))
+    b, heads, nq, _ = q.shape
+    chunks = key_chunks(b * heads, nq, k.shape[2], 132)
+    if case == 'one-key-rows':  # the odd rows' only key is in the last chunk
+        assert chunks > 1
+    out, lse = _tiled_bf16_forward(q, k, v, mask, chunks)
+    want = masked_attention_plain(q, k, v, mask)
+    assert ((out - want).abs().max() / want.abs().max()).item() <= 2e-2
+    scores = q @ k.transpose(-1, -2) + torch.zeros(mask.shape).masked_fill_(mask, -1e9)
+    assert (lse - torch.logsumexp(scores, dim=-1)).abs().max().item() <= 1e-5

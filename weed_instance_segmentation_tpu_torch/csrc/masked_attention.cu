@@ -17,13 +17,39 @@
 // per (batch, head): about 60 flops per byte in bf16, far below the ~295 at
 // which the H100's tensor cores would be the limit.
 //
-// - forward (bf16 and f32): on CUDA cores in f32, flash style. A block holds 8
-//   query rows of one (batch, head), a warp per row; it walks the keys in
-//   tiles of 64 staged in shared memory, each lane scoring one key of a
-//   32-key step, and keeps the online-softmax max, sum and the D-channel
-//   accumulator in registers. It stores the per-row log-sum-exp for the
-//   backward. Rows are never fully masked: the decoder's all-masked-row escape
-//   comes first.
+// Both forwards store the per-row log-sum-exp lse = m + log l for the
+// backward. Rows are never fully masked: the decoder's all-masked-row escape
+// comes first.
+// - forward, bf16: on tensor cores (mma.sync m16n8k16, bf16 in, f32
+//   accumulate), FlashAttention-2's forward split over the keys as in
+//   flash-decoding. A block of 8 warps holds 128 query rows of one (batch,
+//   head), 16 a warp, their Q as A fragments in registers, and walks one
+//   chunk of the keys in tiles of 64 (K, V and the mask bytes copied by
+//   double-buffered cp.async, as the backward's dQ launch does). Per 32 keys:
+//   S = Q K^T by mma, the -1e9 bias where masked, the online-softmax row max
+//   (over the 4 lanes of a row) and sum in f32 registers, P = e^(s - m) by
+//   ex2, the O accumulator rescaled by e^(m_old - m_new), then O += P V with
+//   P's accumulator fragments packed to bf16 as the A operand and V read by
+//   ldmatrix.trans. P is rounded to bf16 before PV, as the Pallas kernel
+//   rounds it; the row sum adds the unrounded P, as Pallas does; every sum is
+//   f32. The keys are split into chunks so that the query tiles of all
+//   (batch, head) fill the card (the wrapper picks the count); each chunk
+//   writes its unnormalised f32 O and its row (max, sum) to scratch, and a
+//   small launch merges the chunks in chunk order (m = max m_c,
+//   l = sum l_c e^(m_c - m), O = sum O_c e^(m_c - m) / l): deterministic, no
+//   atomics. With one chunk the main launch writes O and lse itself. No score
+//   is ever -inf: a chunk whose keys are all blocked for a row has m_c about
+//   -1e9, and its merge weight e^(m_c - m) is exactly 0.
+//   What bounds it now: not bytes (K, V and the mask are read once per row
+//   tile) nor tensor-core operations, but the scalar work per score (mask
+//   test, max, exp, packing) and the mma -> softmax -> mma latency of each
+//   warp at 16 warps an SM; the 72-row second tile of Q = 200 leaves 3 of its
+//   8 warps idle.
+// - forward, f32: on CUDA cores in f32, flash style, kept for the f32 parity
+//   checks. A block holds 8 query rows of one (batch, head), a warp per row;
+//   it walks the keys in tiles of 64 staged in shared memory, each lane
+//   scoring one key of a 32-key step, and keeps the online-softmax max, sum
+//   and the D-channel accumulator in registers.
 // - backward, bf16: on tensor cores (mma.sync m16n8k16, bf16 in, f32
 //   accumulate; csrc/mma.cuh), FlashAttention-2's backward as two launches
 //   with no atomics. Tiles of 64 rows are copied into shared memory as bf16
@@ -60,8 +86,7 @@
 //   query rows of Q, dO and the mask tile at a time in shared memory, and a
 //   warp per key loops over them for dK and dV.
 // Left for later: wgmma and TMA (warp-specialised, pipelined) for the bf16
-// backward, one pass over the scores for both gradients, and tensor cores for
-// the forward.
+// forward and backward, and one pass over the scores for both gradients.
 
 #include <algorithm>
 #include <type_traits>
@@ -79,9 +104,11 @@ constexpr int kQueryChunk = 256;  // query rows the f32 dK/dV launch stages at o
 constexpr float kMaskedBias = -1e9f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// the tensor-core (bf16) backward
-constexpr int kDqThreads = 256, kDqRows = 128;     // a dQ block: 8 warps of 16 query rows
+// the tensor-core (bf16) kernels
+constexpr int kQueryBlockThreads = 256;  // a forward or dQ block: 8 warps of 16 query rows
+constexpr int kQueryBlockRows = 128;
 constexpr int kDkdvThreads = 128, kDkdvKeys = 64;  // a dK/dV block: 4 warps of 16 keys
+constexpr float kNoMax = -1e30f;  // the running max before the first key (below any score)
 constexpr int kQueryTile = 64;  // queries the dK/dV launch stages at a time
 
 // rows [row0, row0 + kKeyTile) of a (rows_total, D) array → shared f32 with
@@ -462,13 +489,193 @@ __device__ __forceinline__ void probs_to_a(uint32_t (&pa)[2][4], uint32_t (&dsa)
   }
 }
 
+// the mask bytes of a half tile (32 keys) for a lane's C fragments, from the
+// staged mask at `row`, the lane's row g and the half's first key: m2[j][h]
+// holds the bytes of columns 8j + 2t and 8j + 2t + 1 (low byte first) of rows
+// g (h = 0) and g + 8 (h = 1)
+__device__ __forceinline__ void load_mask_pairs(uint32_t (&m2)[4][2], const uint8_t* row,
+                                                int tig) {
+  constexpr int kMaskLd = kKeyTile + 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      m2[j][h] = *reinterpret_cast<const uint16_t*>(row + h * 8 * kMaskLd + 8 * j + 2 * tig);
+}
+
+// the mask byte of C fragment element (j, e) from load_mask_pairs' m2
+__device__ __forceinline__ uint32_t mask_byte(const uint32_t (&m2)[4][2], int j, int e) {
+  return (m2[j][e >> 1] >> (8 * (e & 1))) & 0xffu;
+}
+
+// the dynamic shared memory of a forward or dQ block: two buffers each of a
+// K and a V tile and of the (128 x 64) mask bytes
 template <int D>
-constexpr size_t dq_mma_shared_bytes() {
-  return 4 * kKeyTile * (D + 8) * sizeof(bf16_t) + 2 * kDqRows * (kKeyTile + 4);
+constexpr size_t query_block_shared_bytes() {
+  return 4 * kKeyTile * (D + 8) * sizeof(bf16_t) + 2 * kQueryBlockRows * (kKeyTile + 4);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kDqThreads)
+__global__ void __launch_bounds__(kQueryBlockThreads, 2)  // 2 blocks an SM: at most 128 registers
+masked_attention_fwd_mma_kernel(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
+                                const bf16_t* __restrict__ v, const uint8_t* __restrict__ mask,
+                                bf16_t* __restrict__ o, float* __restrict__ lse,
+                                float* __restrict__ part, int heads, int nq, int ns,
+                                int tiles_per_chunk) {
+  constexpr int ld = D + 8, kMaskLd = kKeyTile + 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  auto sk = reinterpret_cast<bf16_t (*)[kKeyTile * ld]>(smem_raw);
+  auto sv = sk + 2;
+  auto smask = reinterpret_cast<uint8_t (*)[kQueryBlockRows * kMaskLd]>(sv + 2);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
+  const long long bh = blockIdx.z;
+  const long long b = bh / heads;
+  const int q0 = blockIdx.x * kQueryBlockRows, chunk = blockIdx.y;
+  const int tile_begin = chunk * tiles_per_chunk;
+  const int tile_end = min(tile_begin + tiles_per_chunk, (ns + kKeyTile - 1) / kKeyTile);
+  const int rows[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};  // this lane's two rows
+  const bool warp_active = q0 + warp * 16 < nq;
+  const bf16_t* kb = k + bh * ns * D;
+  const bf16_t* vb = v + bh * ns * D;
+  const uint8_t* mb = mask + b * nq * ns;
+  auto stage = [&](int buf, int tile) {
+    stage_rows<D, kKeyTile, kQueryBlockThreads>(sk[buf], kb, tile * kKeyTile, ns);
+    stage_rows<D, kKeyTile, kQueryBlockThreads>(sv[buf], vb, tile * kKeyTile, ns);
+    stage_mask<kQueryBlockRows, kKeyTile, kQueryBlockThreads>(smask[buf], mb, q0, nq,
+                                                              tile * kKeyTile, ns);
+  };
+  if (tile_begin < tile_end) stage(0, tile_begin);
+  cp_async_commit();
+
+  uint32_t qa[D / 16][4];
+  load_a_rows<D>(qa, q + bh * nq * D, rows[0], nq, tig);
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  // of rows g and g + 8: the running max (the same in the row's 4 lanes) and
+  // this lane's share of the running sum
+  float m[2] = {kNoMax, kNoMax}, l[2] = {0.f, 0.f};
+
+  for (int t = tile_begin; t < tile_end; ++t) {
+    const int buf = (t - tile_begin) & 1;
+    if (t + 1 < tile_end) stage(buf ^ 1, t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t's copies are done
+    __syncthreads();
+    if (warp_active) {
+      const uint8_t* mrow0 = smask[buf] + (warp * 16 + g) * kMaskLd;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {  // 32 keys at a time
+        if (t * kKeyTile + half * 32 >= ns) break;
+        float s[4][4] = {};
+        mma_rows_t<D, 4>(s, qa, sk[buf] + half * 32 * ld, lane);
+        uint32_t m2[4][2];
+        load_mask_pairs(m2, mrow0 + half * 32, tig);
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[j][e] += mask_byte(m2, j, e) ? kMaskedBias : 0.f;
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+          }
+        float mlog2[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // the row's new max over its quad; rescale the old sums
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+          const float alpha = exp2_approx((m[h] - mx[h]) * kLog2e);
+          l[h] *= alpha;
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n) {
+            acc[n][2 * h] *= alpha;
+            acc[n][2 * h + 1] *= alpha;
+          }
+          m[h] = mx[h];
+          mlog2[h] = mx[h] * kLog2e;
+        }
+        // P = e^(s - m) with log2(e) folded into an FMA; the sum takes P in
+        // f32, the product P rounded to bf16 (C fragments → A, mma.cuh)
+        uint32_t pa[2][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float p[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[e] = exp2_approx(fmaf(s[j][e], kLog2e, -mlog2[e >> 1]));
+          l[0] += p[0] + p[1];
+          l[1] += p[2] + p[3];
+          pa[j / 2][(j & 1) * 2] = pack_bf16x2(p[0], p[1]);
+          pa[j / 2][(j & 1) * 2 + 1] = pack_bf16x2(p[2], p[3]);
+        }
+        mma_rows<D, 2>(acc, pa, sv[buf] + half * 32 * ld, lane);
+      }
+    }
+    __syncthreads();  // every warp is done with `buf` before it is refilled
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // the row sums over the quad
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  if (gridDim.y == 1) {  // one chunk: normalise, write O and lse
+    bf16_t* ob = o + bh * nq * D;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (rows[h] >= nq) continue;  // rows past nq are not written
+      const float inv = 1.f / l[h];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(ob + rows[h] * D + n * 8 + 2 * tig) =
+            pack_bf16x2(acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv);
+      if (tig == 0) lse[bh * nq + rows[h]] = m[h] + logf(l[h]);
+    }
+  } else {  // this chunk's unnormalised O and (max, sum) for the combine launch
+    const long long at = static_cast<long long>(chunk) * gridDim.z + bh;
+    float* ob = part + at * nq * D;
+    float2* ml =
+        reinterpret_cast<float2*>(part + static_cast<long long>(gridDim.y) * gridDim.z * nq * D) +
+        at * nq;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (rows[h] >= nq) continue;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(ob + rows[h] * D + n * 8 + 2 * tig) =
+            make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+      if (tig == 0) ml[rows[h]] = make_float2(m[h], l[h]);
+    }
+  }
+}
+
+// O (as bf16) and lse from the forward's `chunks` partials, merged in chunk
+// order: `part` holds the unnormalised O (chunks, rows, D), then each row's
+// (max, sum) (chunks, rows)
+template <int D>
+__global__ void masked_attention_fwd_combine_kernel(const float* __restrict__ part,
+                                                    bf16_t* __restrict__ o,
+                                                    float* __restrict__ lse, long long rows,
+                                                    int chunks) {
+  const float2* ml = reinterpret_cast<const float2*>(part + chunks * rows * D);
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < rows * D;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long row = i / D;
+    float m = kNoMax;
+    for (int c = 0; c < chunks; ++c) m = fmaxf(m, ml[c * rows + row].x);
+    float l = 0.f, acc = 0.f;
+    for (int c = 0; c < chunks; ++c) {
+      const float2 x = ml[c * rows + row];
+      const float w = expf(x.x - m);  // exactly 0 for a chunk that saw only blocked keys
+      l += x.y * w;
+      acc += part[c * rows * D + i] * w;
+    }
+    o[i] = __float2bfloat16(acc / l);
+    if (i == row * D) lse[row] = m + logf(l);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kQueryBlockThreads)
 masked_attention_bwd_dq_mma_kernel(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
                                    const bf16_t* __restrict__ v, const bf16_t* __restrict__ o,
                                    const bf16_t* __restrict__ dout, const float* __restrict__ lse,
@@ -476,16 +683,16 @@ masked_attention_bwd_dq_mma_kernel(const bf16_t* __restrict__ q, const bf16_t* _
                                    float* __restrict__ delta, int heads, int nq, int ns,
                                    int tiles_per_chunk) {
   constexpr int ld = D + 8, kMaskLd = kKeyTile + 4;
-  // dq_mma_shared_bytes<D>(), two buffers of each: the next key tile is
+  // query_block_shared_bytes<D>(), two buffers of each: the next key tile is
   // copied in while this one is used
   extern __shared__ __align__(16) unsigned char smem_raw[];
   auto sk = reinterpret_cast<bf16_t (*)[kKeyTile * ld]>(smem_raw);
   auto sv = sk + 2;
-  auto smask = reinterpret_cast<uint8_t (*)[kDqRows * kMaskLd]>(sv + 2);
+  auto smask = reinterpret_cast<uint8_t (*)[kQueryBlockRows * kMaskLd]>(sv + 2);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
   const long long bh = blockIdx.z;
   const long long b = bh / heads;
-  const int q0 = blockIdx.x * kDqRows, chunk = blockIdx.y;
+  const int q0 = blockIdx.x * kQueryBlockRows, chunk = blockIdx.y;
   const int tile_begin = chunk * tiles_per_chunk;
   const int tile_end = min(tile_begin + tiles_per_chunk, (ns + kKeyTile - 1) / kKeyTile);
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;  // this lane's two rows
@@ -494,9 +701,9 @@ masked_attention_bwd_dq_mma_kernel(const bf16_t* __restrict__ q, const bf16_t* _
   const bf16_t* vb = v + bh * ns * D;
   const uint8_t* mb = mask + b * nq * ns;
   auto stage = [&](int buf, int tile) {
-    stage_rows<D, kKeyTile, kDqThreads>(sk[buf], kb, tile * kKeyTile, ns);
-    stage_rows<D, kKeyTile, kDqThreads>(sv[buf], vb, tile * kKeyTile, ns);
-    stage_mask<kDqRows, kKeyTile, kDqThreads>(smask[buf], mb, q0, nq, tile * kKeyTile, ns);
+    stage_rows<D, kKeyTile, kQueryBlockThreads>(sk[buf], kb, tile * kKeyTile, ns);
+    stage_rows<D, kKeyTile, kQueryBlockThreads>(sv[buf], vb, tile * kKeyTile, ns);
+    stage_mask<kQueryBlockRows, kKeyTile, kQueryBlockThreads>(smask[buf], mb, q0, nq, tile * kKeyTile, ns);
   };
   if (tile_begin < tile_end) stage(0, tile_begin);
   cp_async_commit();
@@ -546,15 +753,10 @@ masked_attention_bwd_dq_mma_kernel(const bf16_t* __restrict__ q, const bf16_t* _
         mma_rows_t<D, 4>(sc, qa, skh, lane);
         mma_rows_t<D, 4>(dp, da, sv[buf] + half * 32 * ld, lane);
         uint32_t pa[2][4], dsa[2][4];
-        uint32_t m2[4][2];  // the mask bytes of columns 2t and 2t + 1, rows g and g + 8
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            m2[j][h] = *reinterpret_cast<const uint16_t*>(mrow0 + h * 8 * kMaskLd + half * 32 +
-                                                          8 * j + 2 * tig);
+        uint32_t m2[4][2];
+        load_mask_pairs(m2, mrow0 + half * 32, tig);
         probs_to_a(
-            pa, dsa, sc, dp, [&](int j, int e) { return (m2[j][e >> 1] >> (8 * (e & 1))) & 0xffu; },
+            pa, dsa, sc, dp, [&](int j, int e) { return mask_byte(m2, j, e); },
             [&](int, int e) { return e >> 1 ? lse1 : lse0; },
             [&](int, int e) { return e >> 1 ? dl1 : dl0; });
         mma_rows<D, 2>(acc, dsa, skh, lane);
@@ -676,17 +878,50 @@ masked_attention_bwd_dkdv_mma_kernel(const bf16_t* __restrict__ q, const bf16_t*
   }
 }
 
+template <int D>
+int launch_fwd_mma(const void* q, const void* k, const void* v, const void* mask, void* o,
+                   void* lse, void* part, int chunks, int batch_heads, int heads, int nq, int ns,
+                   cudaStream_t stream) {
+  const int key_tiles = (ns + kKeyTile - 1) / kKeyTile;
+  if (chunks < 1 || chunks > key_tiles || (chunks > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles_per_chunk = (key_tiles + chunks - 1) / chunks;
+  const dim3 grid((nq + kQueryBlockRows - 1) / kQueryBlockRows, chunks, batch_heads);
+  cudaFuncSetAttribute(masked_attention_fwd_mma_kernel<D>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(query_block_shared_bytes<D>()));
+  masked_attention_fwd_mma_kernel<D>
+      <<<grid, kQueryBlockThreads, query_block_shared_bytes<D>(), stream>>>(
+          static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
+          static_cast<const bf16_t*>(v), static_cast<const uint8_t*>(mask),
+          static_cast<bf16_t*>(o), static_cast<float*>(lse), static_cast<float*>(part), heads, nq,
+          ns, tiles_per_chunk);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || chunks == 1) return err;
+  const long long rows = static_cast<long long>(batch_heads) * nq;
+  const int blocks = static_cast<int>(std::min((rows * D + 255) / 256, 4096LL));
+  masked_attention_fwd_combine_kernel<D><<<blocks, 256, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<bf16_t*>(o), static_cast<float*>(lse), rows,
+      chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, const void* mask, void* o, void* lse,
-               int batch_heads, int heads, int nq, int ns, cudaStream_t stream) {
-  if (batch_heads > 0 && nq > 0) {
+               void* part, int chunks, int batch_heads, int heads, int nq, int ns,
+               cudaStream_t stream) {
+  if (batch_heads <= 0 || nq <= 0) return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same<T, bf16_t>::value) {
+    return launch_fwd_mma<D>(q, k, v, mask, o, lse, part, chunks, batch_heads, heads, nq, ns,
+                             stream);
+  } else {
     const dim3 grid((nq + kWarps - 1) / kWarps, batch_heads);
     masked_attention_fwd_kernel<T, D><<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const uint8_t*>(mask), static_cast<T*>(o), static_cast<float*>(lse), heads,
         nq, ns);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
@@ -698,11 +933,11 @@ int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o, c
   if (dq_chunks < 1 || dq_chunks > key_tiles || dq_part == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles_per_chunk = (key_tiles + dq_chunks - 1) / dq_chunks;
-  const dim3 grid_q((nq + kDqRows - 1) / kDqRows, dq_chunks, batch_heads);
+  const dim3 grid_q((nq + kQueryBlockRows - 1) / kQueryBlockRows, dq_chunks, batch_heads);
   cudaFuncSetAttribute(masked_attention_bwd_dq_mma_kernel<D>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(dq_mma_shared_bytes<D>()));
-  masked_attention_bwd_dq_mma_kernel<D><<<grid_q, kDqThreads, dq_mma_shared_bytes<D>(), stream>>>(
+                       static_cast<int>(query_block_shared_bytes<D>()));
+  masked_attention_bwd_dq_mma_kernel<D><<<grid_q, kQueryBlockThreads, query_block_shared_bytes<D>(), stream>>>(
       static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k), static_cast<const bf16_t*>(v),
       static_cast<const bf16_t*>(o), static_cast<const bf16_t*>(dout),
       static_cast<const float*>(lse),
@@ -764,18 +999,21 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 // (batch, heads, nq, head_dim) and k/v/dk/dv (batch, heads, ns, head_dim) in
 // bf16 (bf16 != 0; 16-byte aligned) or f32; mask (batch, nq, ns) bytes,
 // nonzero = masked; lse and delta (batch, heads, nq) f32 (delta is scratch
-// written by the backward). For bf16, dq_part is f32 scratch of
-// (dq_chunks, batch, heads, nq, head_dim), 1 <= dq_chunks <= ceil(ns / 64):
-// the dQ launch splits the keys into dq_chunks chunks; for f32 both are
-// unused. nq <= 512, ns >= 1 and head_dim in {16, 32, 64}. Launch on `stream`;
-// return cudaGetLastError() (or cudaErrorInvalidValue for a shape the kernels
-// do not take).
+// written by the backward). For bf16 the forward splits the keys into
+// `chunks` chunks and the backward's dQ launch into `dq_chunks`, each
+// 1 <= count <= ceil(ns / 64); `part` is f32 scratch of
+// chunks * batch * heads * nq * (head_dim + 2) (the chunks' O, then their row
+// max and sum; unused with one chunk) and dq_part of
+// dq_chunks * batch * heads * nq * head_dim; for f32 the counts and scratch
+// are unused. nq <= 512, ns >= 1 and head_dim in {16, 32, 64}. Launch on
+// `stream`; return cudaGetLastError() (or cudaErrorInvalidValue for a shape
+// the kernels do not take).
 extern "C" int wis_masked_attention_fwd(const void* q, const void* k, const void* v,
-                                        const void* mask, void* o, void* lse, int batch,
-                                        int heads, int nq, int ns, int head_dim, int bf16,
-                                        void* stream) {
+                                        const void* mask, void* o, void* lse, void* part,
+                                        int batch, int heads, int nq, int ns, int head_dim,
+                                        int bf16, int chunks, void* stream) {
   if (nq > kMaxQueries || ns < 1) return static_cast<int>(cudaErrorInvalidValue);
-  WIS_DISPATCH(launch_fwd, q, k, v, mask, o, lse, batch * heads, heads, nq, ns,
+  WIS_DISPATCH(launch_fwd, q, k, v, mask, o, lse, part, chunks, batch * heads, heads, nq, ns,
                static_cast<cudaStream_t>(stream))
 }
 

@@ -14,15 +14,18 @@ byte per score and adds exactly −1e9 in float32, so it computes the same
 function. The mask takes no gradient (it comes from ``sigmoid < 0.5``).
 
 A CUDA tensor goes to ``csrc/masked_attention.cu`` through a
-``torch.autograd.Function`` whose backward launches the backward kernels (in
-bfloat16 on tensor cores, with the dQ launch split over chunks of the keys
-into a float32 scratch that a last launch sums); a CPU tensor goes to
-:func:`masked_attention_plain` under autograd. There is no fallback. Each
+``torch.autograd.Function``. In bfloat16 the forward and the backward's dQ
+launch run on tensor cores split over chunks of the keys (:func:`key_chunks`)
+into a float32 scratch that a last launch merges (the forward's chunk maxima
+and sums) or sums (dQ); float32 runs on CUDA cores with no split. A CPU tensor
+goes to :func:`masked_attention_plain` under autograd. There is no fallback. Each
 forward launch adds one to ``masked_attention.launches``, each backward to
 ``masked_attention.backward_launches``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -34,8 +37,8 @@ _LIBRARY = 'masked_attention'
 HEAD_DIMS = (16, 32, 64)
 MAX_QUERIES = 512
 MASKED_BIAS = -1e9
-KEY_TILE, ROW_TILE = 64, 128  # a bf16 dQ block's key tile and query rows
-DQ_BLOCKS_PER_SM = 2  # bf16 dQ blocks an SM holds at once (256 threads each)
+KEY_TILE, ROW_TILE = 64, 128  # a bf16 forward or dQ block's key tile and query rows
+BLOCKS_PER_SM = 2  # bf16 forward or dQ blocks an SM holds at once (256 threads each)
 
 
 def masked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -70,26 +73,41 @@ def _check_kernel(q, k, v, mask) -> None:
                          'at 16-byte-aligned addresses')
 
 
-def dq_chunks(batch_heads: int, nq: int, ns: int, sms: int) -> int:
-    """How many chunks of the keys the bf16 dQ launch splits into: as many
-    (batch·head, 64-row, chunk) blocks as ``sms`` SMs hold at once
-    (``DQ_BLOCKS_PER_SM`` each; more would leave a second, partial wave), with
-    at least two 64-key tiles a chunk."""
+def key_chunks(batch_heads: int, nq: int, ns: int, sms: int) -> int:
+    """How many chunks of the keys the bf16 forward and dQ launches split
+    into: as many (batch·head, 128-row, chunk) blocks as ``sms`` SMs hold at
+    once (``BLOCKS_PER_SM`` each; more would leave a second, partial wave),
+    with at least two 64-key tiles a chunk and none left empty (chunk c takes
+    tiles [c·t, (c+1)·t), t = ceil(tiles / chunks))."""
     key_tiles = -(-ns // KEY_TILE)
     blocks = batch_heads * -(-nq // ROW_TILE)
-    return max(1, min(-(-key_tiles // 2), DQ_BLOCKS_PER_SM * sms // blocks))
+    chunks = max(1, min(-(-key_tiles // 2), BLOCKS_PER_SM * sms // blocks))
+    return -(-key_tiles // -(-key_tiles // chunks))
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 class _MaskedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, mask):
         b, heads, nq, head_dim = q.shape
+        ns, bf16 = k.shape[2], q.dtype == torch.bfloat16
         out = torch.empty_like(q)
         lse = torch.empty((b, heads, nq), dtype=torch.float32, device=q.device)
-        launch(entry_point(_LIBRARY, 'wis_masked_attention_fwd', 6, 6), q.device,
+        chunks, part = 1, None  # the f32 kernel takes no key split
+        if bf16:
+            chunks = key_chunks(b * heads, nq, ns, _sm_count(q.device.index))
+            if chunks > 1:  # the chunks' O (chunks, B, H, Q, D), then their row (max, sum)
+                part = torch.empty(chunks * b * heads * nq * (head_dim + 2), dtype=torch.float32,
+                                   device=q.device)
+        launch(entry_point(_LIBRARY, 'wis_masked_attention_fwd', 7, 7), q.device,
                f'masked attention forward for q {tuple(q.shape)}',
                q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-               lse.data_ptr(), b, heads, nq, k.shape[2], head_dim, int(q.dtype == torch.bfloat16))
+               lse.data_ptr(), None if part is None else part.data_ptr(), b, heads, nq, ns,
+               head_dim, int(bf16), chunks)
         masked_attention.launches += 1
         ctx.save_for_backward(q, k, v, out, lse, mask)
         ctx.mark_non_differentiable(lse)
@@ -107,8 +125,7 @@ class _MaskedAttention(torch.autograd.Function):
         delta = torch.empty_like(lse)
         chunks, dq_part = 0, None  # the f32 kernels take no key split
         if bf16:
-            chunks = dq_chunks(b * heads, nq, ns,
-                               torch.cuda.get_device_properties(q.device).multi_processor_count)
+            chunks = key_chunks(b * heads, nq, ns, _sm_count(q.device.index))
             dq_part = torch.empty((chunks, *q.shape), dtype=torch.float32, device=q.device)
         launch(entry_point(_LIBRARY, 'wis_masked_attention_bwd', 12, 7), q.device,
                f'masked attention backward for q {tuple(q.shape)}',
