@@ -12,8 +12,10 @@ Phases, each of which must pass (the script exits non-zero on any failure):
    and each one's device-busy time per call from a ``torch.profiler`` trace,
    which leaves out the host's time between launches):
    the post-process kernel at the serving shape; window attention forward
-   and backward at Swin-L stage 1, training batch 2 (NW 578, H 6, T 144,
-   D 32), with and without the shift mask, f32 and bf16; masked attention
+   and backward at Swin-L training batch 2, stage 1 (NW 578, H 6, T 144,
+   D 32) and stage 3 (NW 50, H 24), with and without the shift mask, f32
+   and bf16, the backward twice on the same inputs for the same bits, each
+   stage's times under ``by_stage`` in the summary; masked attention
    forward and backward at B 2, H 8, Q 200, D 32, S in {10000, 2500, 625}
    (f32 on the CUDA-core kernels, bf16 on the tensor-core kernels, forward
    and backward), each level's times under ``by_s`` in the summary, and the
@@ -325,41 +327,66 @@ def _timing_line(what: str, t: dict, bound_: dict) -> str:
             f'{dev["library"]:.4f} ms; bound {bound_["bound_ms"]:.4f} ms ({bound_["bound_by"]})')
 
 
-def phase_window_attention(dev: torch.device) -> dict:
-    """Swin-L stage 1 at training batch 2: 2 x 17 x 17 windows of 12 x 12."""
-    images, hp, ws, heads, d = TRAIN_BATCH, 204, 12, 6, 32
-    t = ws * ws
-    nw = images * (hp // ws) ** 2
-    g = torch.Generator(device=dev).manual_seed(1)
-    q, k, v = (torch.randn((nw, heads, t, d), generator=g, device=dev) for _ in range(3))
-    bias = torch.randn((heads, t, t), generator=g, device=dev)
-    mask = torch.from_numpy(shifted_window_attn_mask(hp, hp, ws, ws // 2)).to(dev)
-    log(f'window attention vs plain at NW={nw}, H={heads}, T={t}, D={d}:')
-    errs = {}
-    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-        for m in (None, mask):
-            errs[dtype, m is not None] = _check_against_plain(
-                'shifted' if m is not None else 'unshifted', window_attention,
-                window_attention_plain, (q, k, v), (bias,), True, (m,), dtype, tol)
+WINDOW_STAGES = {  # Swin-L at 800², training batch 2: (padded map side, heads)
+    'stage1_b2': (204, 6), 'stage3_b2': (60, 24)}
 
-    # timed at the training path's type, with the shift mask
-    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
-    full_mask = (bias[None] + mask.repeat(images, 1, 1)[:, None]).to(torch.bfloat16)
-    t_ms = _time_fwd_bwd(window_attention, window_attention_plain, _sdpa(None),
-                         [qb, kb, vb, bias], (mask,), (full_mask,))
-    qkv_bytes = nw * heads * t * d * 2
-    const_bytes = (heads + mask.shape[0]) * t * t * 4
-    lse_bytes = nw * heads * t * 4
-    pair_flops = nw * heads * t * t * d
-    fwd_bound = bound(4 * qkv_bytes + const_bytes + lse_bytes, 4 * pair_flops, torch.bfloat16)
-    bwd_bound = bound(8 * qkv_bytes + const_bytes + lse_bytes + heads * t * t * 4,
-                      10 * pair_flops, torch.bfloat16)
-    for phase in ('fwd', 'bwd'):
-        log(_timing_line(f'{phase} bf16 shifted', t_ms[phase],
-                         fwd_bound if phase == 'fwd' else bwd_bound))
-    err_fwd, err_bwd = errs[torch.bfloat16, True]
-    return {'window_attention_fwd': _summary(t_ms['fwd'], fwd_bound, err_fwd),
-            'window_attention_bwd': _summary(t_ms['bwd'], bwd_bound, err_bwd)}
+
+def _window_backward_repeats(q, k, v, bias, mask, dtype) -> bool:
+    """Whether two backward calls on the same inputs give the same bits of
+    dQ, dK, dV and dBias."""
+    ins = [t.detach().to(dtype).requires_grad_(True) for t in (q, k, v)] + \
+        [bias.detach().requires_grad_(True)]
+    out = window_attention(*ins, mask)
+    cot = torch.randn(out.shape, generator=torch.Generator(device=out.device).manual_seed(5),
+                      device=out.device).to(dtype)
+    first, second = (torch.autograd.grad(out, ins, cot, retain_graph=True) for _ in range(2))
+    return all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def phase_window_attention(dev: torch.device) -> dict:
+    """Swin-L at training batch 2, window 12 (T 144, D 32): stage 1
+    (2 x 17 x 17 windows, 6 heads) and stage 3 (2 x 5 x 5 windows, 24
+    heads)."""
+    images, ws, d = TRAIN_BATCH, 12, 32
+    t = ws * ws
+    levels = {'fwd': {}, 'bwd': {}}
+    for stage, (hp, heads) in WINDOW_STAGES.items():
+        nw = images * (hp // ws) ** 2
+        g = torch.Generator(device=dev).manual_seed(1)
+        q, k, v = (torch.randn((nw, heads, t, d), generator=g, device=dev) for _ in range(3))
+        bias = torch.randn((heads, t, t), generator=g, device=dev)
+        mask = torch.from_numpy(shifted_window_attn_mask(hp, hp, ws, ws // 2)).to(dev)
+        log(f'window attention vs plain at {stage}: NW={nw}, H={heads}, T={t}, D={d}:')
+        errs = {}
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            for m in (None, mask):
+                errs[dtype, m is not None] = _check_against_plain(
+                    'shifted' if m is not None else 'unshifted', window_attention,
+                    window_attention_plain, (q, k, v), (bias,), True, (m,), dtype, tol)
+            check(_window_backward_repeats(q, k, v, bias, mask, dtype),
+                  f'{stage} {dtype}: two backward calls gave different bits')
+        log('  backward bitwise repeatable (dQ, dK, dV, dBias), f32 and bf16')
+
+        # timed at the training path's type, with the shift mask
+        qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+        full_mask = (bias[None] + mask.repeat(images, 1, 1)[:, None]).to(torch.bfloat16)
+        t_ms = _time_fwd_bwd(window_attention, window_attention_plain, _sdpa(None),
+                             [qb, kb, vb, bias], (mask,), (full_mask,))
+        qkv_bytes = nw * heads * t * d * 2
+        const_bytes = (heads + mask.shape[0]) * t * t * 4
+        lse_bytes = nw * heads * t * 4
+        pair_flops = nw * heads * t * t * d
+        bounds = {'fwd': bound(4 * qkv_bytes + const_bytes + lse_bytes, 4 * pair_flops,
+                               torch.bfloat16),
+                  'bwd': bound(8 * qkv_bytes + const_bytes + lse_bytes + heads * t * t * 4,
+                               10 * pair_flops, torch.bfloat16)}
+        for i, phase in enumerate(('fwd', 'bwd')):
+            log(_timing_line(f'{phase} bf16 shifted {stage}', t_ms[phase], bounds[phase]))
+            levels[phase][stage] = _summary(t_ms[phase], bounds[phase],
+                                            errs[torch.bfloat16, True][i])
+    # the summary line reports stage 1, and every stage under by_stage
+    return {f'window_attention_{phase}': {**by_stage['stage1_b2'], 'by_stage': by_stage}
+            for phase, by_stage in levels.items()}
 
 
 def masked_inputs(dev: torch.device, b: int, s: int, heads: int = 8, nq: int = 200,
@@ -649,12 +676,13 @@ def phase_training(dev: torch.device, cache_dir: str) -> dict:
     log('device ms by kernel, top 15:')
     for key, ms in by_kernel.most_common(15):
         log(f'  {ms:9.2f}  {key[:110]}')
-    masked = collections.Counter()
-    for key, ms in by_kernel.items():
-        if 'masked_attention' in key:
-            masked[kernel_name(key)] += ms
-    log('masked-attention kernels, device ms: '
-        + ', '.join(f'{name} {ms:.2f}' for name, ms in masked.most_common()))
+    for op in ('window_attention', 'masked_attention'):
+        by_name = collections.Counter()
+        for key, ms in by_kernel.items():
+            if op in key:
+                by_name[kernel_name(key)] += ms
+        log(f'{op.replace("_", "-")} kernels, device ms: '
+            + ', '.join(f'{name} {ms:.2f}' for name, ms in by_name.most_common()))
     del model, optimizer, step, batches
     torch.cuda.empty_cache()
     return launches

@@ -8,6 +8,8 @@ run on a machine that has only PyTorch and the CUDA toolkit:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m cuda
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -21,8 +23,9 @@ from weed_instance_segmentation_tpu_torch.ops.postprocess_kernel import (
     bilinear_taps, fused_upsample_stats, fused_upsample_stats_plain, upsample_plain,
 )
 from weed_instance_segmentation_tpu_torch.ops.resize import bilinear_resize_matrix
+from weed_instance_segmentation_tpu_torch.ops import window_attention as window_ops
 from weed_instance_segmentation_tpu_torch.ops.window_attention import (
-    window_attention, window_attention_plain,
+    BACKWARD_MAX_TOKENS, window_attention, window_attention_plain, window_runs,
 )
 
 
@@ -135,8 +138,24 @@ def _kernel_vs_plain(kernel, plain, tensors, consts, grad_index, dtype, seed):
 WINDOW_CASES = {  # (images, height, width of the padded map, window, heads, head_dim)
     'small': (2, 8, 12, 4, 2, 16),
     'small-d64': (2, 8, 12, 4, 2, 64),
+    'swin-t-w7': (2, 14, 21, 7, 3, 32),
     'swin-l-stage1-b2': (2, 204, 204, 12, 6, 32),
+    'swin-l-stage3-b2': (2, 60, 60, 12, 24, 32),
+    'w12-d64': (1, 24, 24, 12, 2, 64),  # the bf16 backward's one-set-of-tiles path
 }
+
+
+def _window_inputs(case, shifted, device, seed=1):
+    """q, k, v (NW, H, T, D), the relative-position bias (H, T, T) and, if
+    ``shifted``, the shift mask (nW_img, T, T), all float32."""
+    images, h, w, ws, heads, d = WINDOW_CASES[case]
+    nw, t = images * (h // ws) * (w // ws), ws * ws
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn((nw, heads, t, d), generator=g, device=device) for _ in range(3))
+    bias = torch.randn((heads, t, t), generator=g, device=device)
+    mask = torch.from_numpy(shifted_window_attn_mask(h, w, ws, ws // 2)).to(device) \
+        if shifted else None
+    return q, k, v, bias, mask
 
 
 @pytest.mark.cuda
@@ -149,19 +168,66 @@ def test_window_attention_kernels_match_plain(cuda_device, case, shifted, dtype,
     magnitude (f32: 1e-4; bf16: 2e-2 against the plain version in f32 on the
     same bf16 values); each call launches the forward and backward kernel
     once."""
-    images, h, w, ws, heads, d = WINDOW_CASES[case]
-    nw, t = images * (h // ws) * (w // ws), ws * ws
-    g = torch.Generator(device=cuda_device).manual_seed(1)
-    q, k, v = (torch.randn((nw, heads, t, d), generator=g, device=cuda_device) for _ in range(3))
-    bias = torch.randn((heads, t, t), generator=g, device=cuda_device)
-    mask = torch.from_numpy(shifted_window_attn_mask(h, w, ws, ws // 2)).to(cuda_device) \
-        if shifted else None
+    q, k, v, bias, mask = _window_inputs(case, shifted, cuda_device)
     launches = window_attention.launches, window_attention.backward_launches
     errs = _kernel_vs_plain(window_attention, window_attention_plain, [q, k, v, bias], [mask],
                             (0, 1, 2, 3), dtype, 2)
     assert (window_attention.launches, window_attention.backward_launches) == \
         (launches[0] + 1, launches[1] + 1)
     assert max(errs.values()) <= tol, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
+def test_window_attention_backward_is_deterministic(cuda_device, dtype):
+    """Two backward calls on the same inputs give the same bits of dQ, dK,
+    dV and dBias: the dBias partials are summed in run order, with no
+    atomics."""
+    q, k, v, bias, mask = _window_inputs('swin-l-stage1-b2', True, cuda_device)
+    ins = [t.to(dtype).requires_grad_(True) for t in (q, k, v)] + [bias.requires_grad_(True)]
+    out = window_attention(*ins, mask)
+    cot = torch.randn(out.shape, generator=torch.Generator(device=cuda_device).manual_seed(5),
+                      device=cuda_device).to(dtype)
+    first, second = (torch.autograd.grad(out, ins, cot, retain_graph=True) for _ in range(2))
+    for name, a, b in zip(('dq', 'dk', 'dv', 'dbias'), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('runs', [1, 7, 29, 36])
+def test_window_attention_backward_takes_any_run_count(cuda_device, monkeypatch, runs):
+    """The bf16 backward with its 36 windows split into ``runs`` runs (the
+    wrapper's own rule aside): one run, 7 of 5 or 6 windows, 29 of 1 or 2,
+    and one run a window; output and gradients within 2e-2 of the plain
+    version."""
+    monkeypatch.setattr(window_ops, 'window_runs', lambda *_: runs)
+    q, k, v, bias, mask = _window_inputs('swin-t-w7', True, cuda_device)
+    q, k, v, bias = (torch.cat([t] * 3) if t.ndim == 4 else t for t in (q, k, v, bias))
+    errs = _kernel_vs_plain(window_attention, window_attention_plain, [q, k, v, bias], [mask],
+                            (0, 1, 2, 3), torch.bfloat16, 2)
+    assert max(errs.values()) <= 2e-2, errs
+
+
+@pytest.mark.cuda
+def test_window_attention_wrapper_raises_on_what_the_backward_does_not_take(cuda_device):
+    """A bf16 view off 16-byte alignment, and a T beyond the backward's
+    limit when an input requires grad (before the forward launches); the
+    forward alone still takes that T."""
+    bias = torch.zeros((1, 16, 16), device=cuda_device)
+    q = torch.zeros(16 * 16 + 1, dtype=torch.bfloat16, device=cuda_device)[1:].view(1, 1, 16, 16)
+    with pytest.raises(ValueError, match='16-byte-aligned'):
+        window_attention(q, q, q, bias)
+    t = BACKWARD_MAX_TOKENS + 25
+    q = torch.zeros((1, 1, t, 16), device=cuda_device)
+    bias = torch.zeros((1, t, t), device=cuda_device, requires_grad=True)
+    launches = window_attention.launches
+    with pytest.raises(ValueError, match=f'at most {BACKWARD_MAX_TOKENS} tokens'):
+        window_attention(q, q, q, bias)
+    assert window_attention.launches == launches
+    with torch.no_grad():
+        out = window_attention(q, q, q, bias)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and window_attention.launches == launches + 1
 
 
 MASKED_CASES = {'small': (2, 2, 10, 40, 16), 'small-d64': (1, 3, 7, 100, 64),
@@ -340,3 +406,68 @@ def test_tiled_bf16_forward_arithmetic_matches_plain(case):
     assert ((out - want).abs().max() / want.abs().max()).item() <= 2e-2
     scores = q @ k.transpose(-1, -2) + torch.zeros(mask.shape).masked_fill_(mask, -1e9)
     assert (lse - torch.logsumexp(scores, dim=-1)).abs().max().item() <= 1e-5
+
+
+# (windows, heads) of the four Swin-L stages at 800² batch 2, tiny-test's
+# first two stages at 64 x 96 batch 2, and Swin-T's first stage (T = 49) at
+# 800² batch 2
+@pytest.mark.parametrize('windows,heads', [(578, 6), (162, 12), (50, 24), (18, 48), (48, 1),
+                                           (12, 2), (1682, 3)])
+def test_window_runs_cover_every_window_once(windows, heads):
+    """The backward's runs (run r takes windows r, r + runs, r + 2·runs, …):
+    every window in exactly one run, no run empty, runs within one window of
+    each other's length, and no more (run, head) blocks than one wave of 132
+    SMs."""
+    runs = window_runs(windows, heads, 132)
+    assert 1 <= runs <= windows
+    spans = [range(r, windows, runs) for r in range(runs)]
+    assert sorted(w for span in spans for w in span) == list(range(windows))
+    assert min(len(span) for span in spans) >= max(1, len(spans[0]) - 1)
+    assert runs * heads <= 132 or runs == 1
+
+
+def _tiled_bf16_window_backward(q, k, v, bias, mask, dout, runs):
+    """The bf16 backward kernel's arithmetic in float32 on the CPU: P from
+    the forward's log-sum-exp, Delta from the output rounded to bf16, P and
+    dS rounded to bf16 before dV, dK and dQ, and dBias from the unrounded dS
+    summed over each run's windows (run r: r, r + runs, …) in window order,
+    then over the runs in run order; dQ, dK and dV rounded to bf16."""
+    bf = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    nw, _, _, d = q.shape
+    scores = q @ k.transpose(-1, -2) / math.sqrt(d) + bias
+    if mask is not None:
+        scores = scores + mask.repeat(nw // mask.shape[0], 1, 1)[:, None]
+    lse = torch.logsumexp(scores, dim=-1, keepdim=True)
+    out = bf(torch.softmax(scores, dim=-1) @ v)
+    delta = (dout * out).sum(-1, keepdim=True)
+    p = torch.exp(scores - lse)
+    ds = p * (dout @ v.transpose(-1, -2) - delta)
+    dq = bf(bf(ds) @ k / math.sqrt(d))
+    dk = bf(bf(ds).transpose(-1, -2) @ q / math.sqrt(d))
+    dv = bf(bf(p).transpose(-1, -2) @ dout)
+    dbias = torch.zeros_like(bias)
+    for r in range(runs):
+        part = torch.zeros_like(bias)
+        for w in range(r, nw, runs):
+            part = part + ds[w]
+        dbias = dbias + part
+    return dq, dk, dv, dbias
+
+
+@pytest.mark.parametrize('shifted', [False, True], ids=['plain', 'shifted'])
+@pytest.mark.parametrize('case', ['small', 'small-d64', 'swin-t-w7'])
+def test_tiled_bf16_window_backward_arithmetic_matches_plain(case, shifted):
+    """The bf16 backward's rounding and run split, rehearsed on the CPU:
+    dQ, dK, dV and dBias within the card test's 2e-2 of the plain float32
+    gradients on the same bf16 values."""
+    q, k, v, bias, mask = _window_inputs(case, shifted, torch.device('cpu'))
+    q, k, v = (t.to(torch.bfloat16).float() for t in (q, k, v))
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(2)).to(
+        torch.bfloat16).float()
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v, bias)]
+    window_attention_plain(*ins, mask).backward(dout)
+    nw, heads = q.shape[:2]
+    runs = window_runs(nw, heads, 132)
+    got = _tiled_bf16_window_backward(q, k, v, bias, mask, dout, runs)
+    for g_, t in zip(got, ins):
+        assert ((g_ - t.grad).abs().max() / t.grad.abs().max()).item() <= 2e-2

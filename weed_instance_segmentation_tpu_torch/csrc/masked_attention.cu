@@ -362,8 +362,6 @@ masked_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ 
 
 // ---- the tensor-core (bf16) backward ----
 
-using bf16_t = __nv_bfloat16;
-
 // rows [row0, row0 + ROWS) of a (rows_total, D) bf16 array → shared bf16
 // with row stride D + 8, by cp.async in 16-byte vectors from THREADS
 // threads; rows past the end are zero
@@ -426,42 +424,6 @@ __device__ __forceinline__ void load_a_rows(uint32_t (&a)[D / 16][4],
     a[kk][1] = ok1 ? load_bf16x2(p1 + kk * 16) : 0u;
     a[kk][2] = ok0 ? load_bf16x2(p0 + kk * 16 + 8) : 0u;
     a[kk][3] = ok1 ? load_bf16x2(p1 + kk * 16 + 8) : 0u;
-  }
-}
-
-// c[j] += A B_j for NT n8 tiles, B_j^T being shared rows [8j, 8j + 8) (row
-// stride D + 8): 8 keys (or queries) by D, read by ldmatrix without transpose
-template <int D, int NT>
-__device__ __forceinline__ void mma_rows_t(float (&c)[NT][4], const uint32_t (&a)[D / 16][4],
-                                           const bf16_t* s, int lane) {
-#pragma unroll
-  for (int j = 0; j < NT; j += 2) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t b[4];
-      ldmatrix_x4(b, s + ((j + lane / 16) * 8 + lane % 8) * (D + 8) + kk * 16 +
-                         ((lane / 8) & 1) * 8);
-      mma_bf16(c[j], a[kk], b[0], b[1]);
-      mma_bf16(c[j + 1], a[kk], b[2], b[3]);
-    }
-  }
-}
-
-// acc += A B for the KS k16 steps' A fragments in `a` and B = shared rows
-// [0, 16 KS) (row stride D + 8), read by ldmatrix.trans
-template <int D, int KS>
-__device__ __forceinline__ void mma_rows(float (&acc)[D / 8][4], const uint32_t (&a)[KS][4],
-                                         const bf16_t* s, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-    for (int nd = 0; nd < D / 8; nd += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, s + (kk * 16 + ((lane / 8) & 1) * 8 + lane % 8) * (D + 8) +
-                               (nd + lane / 16) * 8);
-      mma_bf16(acc[nd], a[kk], b[0], b[1]);
-      mma_bf16(acc[nd + 1], a[kk], b[2], b[3]);
-    }
   }
 }
 

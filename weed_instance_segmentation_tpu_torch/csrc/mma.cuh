@@ -1,6 +1,8 @@
 // Warp-level tensor-core helpers for sm_90a, as inline PTX: ldmatrix from
 // shared memory, mma.sync m16n8k16 in bf16 with f32 accumulation, cp.async
-// copies into shared memory, and bf16x2 packing.
+// copies into shared memory, bf16x2 packing, and the two products of a warp's
+// 16 rows with rows staged in shared memory (mma_rows_t, mma_rows) that the
+// attention kernels share.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4); each 32-bit
 // register holds two adjacent columns, the lower column in the low half:
@@ -17,6 +19,8 @@
 #include <stdint.h>
 
 namespace {
+
+using bf16_t = __nv_bfloat16;
 
 // four 8 x 8 b16 matrices; lane l gives the address of row l % 8 of matrix
 // l / 8 (16-byte aligned); r[i] receives the lane's pair of matrix i
@@ -82,6 +86,42 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // two adjacent bf16 values from device memory (4-byte aligned)
 __device__ __forceinline__ uint32_t load_bf16x2(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// c[j] += A B_j for NT n8 tiles, B_j^T being shared rows [8j, 8j + 8) (row
+// stride D + 8): 8 keys (or queries) by D, read by ldmatrix without transpose
+template <int D, int NT>
+__device__ __forceinline__ void mma_rows_t(float (&c)[NT][4], const uint32_t (&a)[D / 16][4],
+                                           const bf16_t* s, int lane) {
+#pragma unroll
+  for (int j = 0; j < NT; j += 2) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t b[4];
+      ldmatrix_x4(b, s + ((j + lane / 16) * 8 + lane % 8) * (D + 8) + kk * 16 +
+                         ((lane / 8) & 1) * 8);
+      mma_bf16(c[j], a[kk], b[0], b[1]);
+      mma_bf16(c[j + 1], a[kk], b[2], b[3]);
+    }
+  }
+}
+
+// acc += A B for the KS k16 steps' A fragments in `a` and B = shared rows
+// [0, 16 KS) (row stride D + 8), read by ldmatrix.trans
+template <int D, int KS>
+__device__ __forceinline__ void mma_rows(float (&acc)[D / 8][4], const uint32_t (&a)[KS][4],
+                                         const bf16_t* s, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+    for (int nd = 0; nd < D / 8; nd += 2) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, s + (kk * 16 + ((lane / 8) & 1) * 8 + lane % 8) * (D + 8) +
+                               (nd + lane / 16) * 8);
+      mma_bf16(acc[nd], a[kk], b[0], b[1]);
+      mma_bf16(acc[nd + 1], a[kk], b[2], b[3]);
+    }
+  }
 }
 
 }  // namespace

@@ -6,46 +6,85 @@
 // for q/k/v (NW, H, T, D). This kernel also takes the shifted-window mask
 // (the Pallas kernel lacks it): attn_mask[w % nW_img] (nW_img, T, T) is added
 // to the scores, in the window order of models/swin.py::window_partition, as
-// models/swin.py::WindowAttention does. The backward kernel has no Pallas
-// original: it gives dQ, dK, dV and dBias = sum over windows of dScores.
+// models/swin.py::WindowAttention does. The backward kernels have no Pallas
+// original: with S the scores, P = exp(S - lse), Delta_i = dO_i . O_i and
+// dS = P * (dO V^T - Delta), they give dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D),
+// dV = P^T dO and dBias[h] = the sum over windows of dS, in f32.
 //
 // What bounds it: memory. At Swin-L stage 1 (T = 144, D = 32) the forward does
 // 4*T*D flops per score pair against 4*T*D*2 bytes (bf16) per window-head of
 // q/k/v/o, so about 36 flops per byte, far below the ~295 at which the H100's
-// tensor cores, not HBM, would be the limit. This first version does the
-// arithmetic on CUDA cores in float32 (softmax and sums in f32 for bf16 and
-// f32 inputs) and keeps the scores out of device memory:
-// - forward: one block per (window, head); Q, K and V are staged in shared
-//   memory as f32 (row stride D + 1, so a warp reading K by rows hits 32
-//   banks); a warp per query row, with that row in registers, forms the T
-//   scores (lane j takes keys j, j + 32, ...), adds rel_bias[h] and the
-//   mask, takes a warp-reduced softmax and writes O[i, :] with one lane per
-//   channel. It stores the per-row log-sum-exp for the backward.
-// - backward: one block of 512 threads per (head, run of windows), which its
-//   ~175 KB of shared memory keeps alone on an SM. For each window it stages
-//   Q, K, V and dO, recomputes P from the log-sum-exp, and forms
-//   dS = P * (dP - Delta), Delta_i = dO_i . O_i. A warp per query row gives dQ;
-//   a warp per key column gives dK and dV (recomputing that column of P and
-//   dS), so no two threads add into one output; each warp keeps its row or
-//   column of the operands in registers. dS is summed into a (T, T)
-//   f32 accumulator in shared memory over the block's run of windows (each
-//   (i, j) has one owning thread), and added into dBias with one atomicAdd per
-//   element per block: with 578 windows at stage 1 b2, per-window atomics
-//   would contend 578-fold.
-// wgmma, TMA and keeping P in registers are left for later.
+// tensor cores, not HBM, would be the limit.
+// - forward (bf16 and f32): on CUDA cores in f32, one block per (window,
+//   head); Q, K and V are staged in shared memory as f32 (row stride D + 1, so
+//   a warp reading K by rows hits 32 banks); a warp per query row, with that
+//   row in registers, forms the T scores (lane j takes keys j, j + 32, ...),
+//   adds rel_bias[h] and the mask, takes a warp-reduced softmax and writes
+//   O[i, :] with one lane per channel. It stores the per-row log-sum-exp for
+//   the backward.
+// - backward, bf16: on tensor cores (mma.sync m16n8k16, bf16 in, f32
+//   accumulate; csrc/mma.cuh), T <= 144. A block of T/16 warps (T padded to
+//   a multiple of 16: 9 warps at T = 144) takes one head and a run of
+//   windows (the wrapper picks the runs: one wave of blocks). Run r takes
+//   windows r, r + runs, ..., so the windows with a nonzero shift mask
+//   (Swin's last row and column of windows) spread over the runs. Q, K, V,
+//   dO and O of a window are copied into shared memory as bf16, and its lse
+//   as f32, by cp.async, rows padded by 16 bytes for ldmatrix, padded rows
+//   zero; the next window's copies are in flight while this one is used
+//   where shared memory holds two sets (all head dims but 64). Per window:
+//   (1) rows: each warp takes 16 queries (Q and dO as A fragments) and walks
+//   the keys 16 at a time: S = Q K^T and dP = dO V^T by mma, then the scale,
+//   bias and mask in f32 (the next step's bias and mask are read while this
+//   step computes; a window whose mask is all zero, as Swin's interior
+//   windows' are, reads no mask), P = e^(s - lse) by ex2 and
+//   dS = P (dP - Delta); dQ += dS K with dS's accumulator fragments packed
+//   to bf16 as the A operand and K read by ldmatrix.trans. dS is added
+//   unrounded into the f32 dBias accumulator, which stays in registers in
+//   the C-fragment layout over the whole run (each element has one owning
+//   lane). P and dS are stored to shared memory as bf16. A padded key or
+//   query gets P = dS = 0 and reads no bias or mask.
+//   (2) columns: each warp takes 16 keys: dV = P^T dO and dK = dS^T Q, with
+//   P^T and dS^T read from the stored tiles by ldmatrix.trans and dO and Q
+//   as B operands. So each score's P and dS are computed once.
+//   At the end of its run a block writes its dBias partial (runs, H, T, T),
+//   and a second launch sums the runs in run order: no atomics, the same bits
+//   on every call. P and dS are rounded to bf16 before the products that use
+//   them, as the masked-attention kernels round them; every sum is f32.
+//   What bounds it now: neither bytes (3.5x the byte bound at Swin-L stage 1)
+//   nor tensor-core operations, but each warp's latency through the bias and
+//   mask loads from L2, exp, dS and packing between its mma steps, at 9
+//   warps an SM: P, dS and two sets of tiles (199 KB at T = 144, D = 32) leave
+//   room for one block an SM, and the dBias accumulator holds 72 registers a
+//   thread. Staging the head's bias in shared memory instead, which leaves
+//   room for one set of tiles only, measured slower.
+// - backward, f32: on CUDA cores in f32, kept for the f32 parity checks. One
+//   block of 512 threads per (run of windows, head), the same runs. For each
+//   window it stages Q, K, V and dO and recomputes P from the log-sum-exp; a
+//   warp per query row gives dQ, a warp per key column gives dK and dV
+//   (recomputing that column of P and dS), so no two threads add into one
+//   output. dS goes into the block's dBias partial in device memory, each
+//   element owned by one thread, and the same second launch sums the runs.
+// Left for later: wgmma and TMA for the backward, more warps an SM (the
+// mask-heavy runs of Swin-L stage 3 set its time), and the forward on tensor
+// cores.
 
 #include "common.cuh"
+#include "mma.cuh"
+
+#include <algorithm>
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// the backward's ~175 KB of shared memory fits one block per SM, so its
-// block is twice as wide as the forward's to keep 16 warps resident
-constexpr int kBwdThreads = 512;
+constexpr int kBwdThreads = 512;  // the f32 backward: 16 warps
 constexpr int kBwdWarps = kBwdThreads / 32;
-constexpr int kMaxTokens = 256;
+constexpr int kMaxTokens = 256;     // the forward
+constexpr int kBwdMaxTokens = 144;  // the backward: the bf16 dBias accumulator's registers
 constexpr int kKeysPerLane = kMaxTokens / 32;
+constexpr int kMaxKeySteps = kBwdMaxTokens / 16;  // 16-key steps of the bf16 backward
+constexpr float kLog2e = 1.4426950408889634f;
 
 // (rows, D) contiguous → shared memory as f32 with row stride D + 1
 template <typename T, int D>
@@ -137,30 +176,29 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ dout, const float* __restrict__ lse,
                             const float* __restrict__ bias, const float* __restrict__ mask,
                             T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
-                            float* __restrict__ dbias,  // (H, T, T), zeroed by the caller
-                            int windows, int heads, int t, int n_img_windows,
-                            int windows_per_block, float sqrt_d) {
+                            float* __restrict__ part,  // (runs, H, T, T) dBias partials
+                            int windows, int heads, int t, int n_img_windows, float sqrt_d) {
   extern __shared__ float smem[];
   constexpr int ld = D + 1;
   float* sq = smem;
   float* sk = sq + t * ld;
   float* sv = sk + t * ld;
   float* sdo = sv + t * ld;
-  float* sacc = sdo + t * ld;   // (t, t) sum of dS over this block's windows
-  float* slse = sacc + t * t;
+  float* slse = sdo + t * ld;
   float* sdelta = slse + t;
   float* sbuf = sdelta + t;     // kBwdWarps x 2 rows of t
 
-  const int h = blockIdx.y;
-  const int w0 = blockIdx.x * windows_per_block;
-  const int w1 = min(windows, w0 + windows_per_block);
+  const int h = blockIdx.y, run = blockIdx.x, runs = gridDim.x;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const float* bias_h = bias + static_cast<long long>(h) * t * t;
   float* buf_a = sbuf + warp * 2 * t;
   float* buf_b = buf_a + t;
-  for (int e = threadIdx.x; e < t * t; e += kBwdThreads) sacc[e] = 0.f;
+  // this run's dBias partial; thread (i % kBwdWarps, j % 32) owns (i, j)
+  float* acc = part + (static_cast<long long>(run) * heads + h) * t * t;
+  for (int i = warp; i < t; i += kBwdWarps)
+    for (int j = lane; j < t; j += 32) acc[i * t + j] = 0.f;
 
-  for (int w = w0; w < w1; ++w) {
+  for (int w = run; w < windows; w += runs) {
     __syncthreads();  // the previous window's readers are done with the tiles
     const long long wh = static_cast<long long>(w) * heads + h;
     const long long base = wh * t * D;
@@ -170,15 +208,15 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<T, D>(sdo, dout + base, t);
     __syncthreads();
     for (int i = threadIdx.x; i < t; i += kBwdThreads) {
-      float acc = 0.f;
-      for (int d = 0; d < D; ++d) acc += sdo[i * ld + d] * to_f(o[base + i * D + d]);
-      sdelta[i] = acc;
+      float dl = 0.f;
+      for (int d = 0; d < D; ++d) dl += sdo[i * ld + d] * to_f(o[base + i * D + d]);
+      sdelta[i] = dl;
       slse[i] = lse[wh * t + i];
     }
     __syncthreads();
     const float* mask_w = mask ? mask + static_cast<long long>(w % n_img_windows) * t * t : nullptr;
 
-    // rows: dQ, and dS into the dBias accumulator (thread (i % kBwdWarps, j % 32) owns (i, j))
+    // rows: dQ, and dS into the dBias partial
     for (int i = warp; i < t; i += kBwdWarps) {
       float qi[D], doi[D];
       row_to_regs<D>(qi, sq + i * ld);
@@ -192,14 +230,14 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const float p = expf(s - slse[i]);
           const float ds = p * (dot_reg<D>(doi, sv + j * ld) - sdelta[i]);
           buf_a[j] = ds;
-          sacc[i * t + j] += ds;
+          acc[i * t + j] += ds;
         }
       }
       __syncwarp();
       for (int d = lane; d < D; d += 32) {
-        float acc = 0.f;
-        for (int j = 0; j < t; ++j) acc += buf_a[j] * sk[j * ld + d];
-        dq[base + i * D + d] = from_f<T>(acc / sqrt_d);
+        float a = 0.f;
+        for (int j = 0; j < t; ++j) a += buf_a[j] * sk[j * ld + d];
+        dq[base + i * D + d] = from_f<T>(a / sqrt_d);
       }
       __syncwarp();
     }
@@ -233,22 +271,276 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncwarp();
     }
   }
-  __syncthreads();
-  if (w0 < w1) {
-    float* out = dbias + static_cast<long long>(h) * t * t;
-    for (int e = threadIdx.x; e < t * t; e += kBwdThreads) atomicAdd(out + e, sacc[e]);
+}
+
+// ---- the tensor-core (bf16) backward ----
+
+// rows [0, rows) of a (rows, D) bf16 array → shared bf16 with row stride
+// D + 8, by cp.async in 16-byte vectors from the whole block; rows
+// [rows, padded) are zero
+template <int D>
+__device__ __forceinline__ void stage_tile(bf16_t* dst, const bf16_t* __restrict__ src, int rows,
+                                           int padded) {
+  constexpr int kVecs = D / 8;
+  for (int e = threadIdx.x; e < padded * kVecs; e += blockDim.x) {
+    const int r = e / kVecs, c = (e - r * kVecs) * 8;
+    const bool ok = r < rows;
+    cp_async_16(dst + r * (D + 8) + c, src + (ok ? r * D + c : 0), ok);
   }
 }
 
-int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    if (count <= 0) count = 132;
+// bf16 elements of one set of a window's tiles for `tp` padded tokens: Q,
+// K, V, dO and O (tp, D + 8) each, then lse (tp floats)
+template <int D>
+__host__ __device__ int bwd_mma_set_elems(int tp) {
+  return 5 * tp * (D + 8) + 2 * tp;
+}
+
+// bytes of shared memory of a bf16 backward block: P and dS, and `sets`
+// sets of tiles
+template <int D>
+size_t bwd_mma_shared_bytes(int tp, int sets) {
+  return (2 * static_cast<size_t>(tp) * (tp + 8) +
+          static_cast<size_t>(sets) * bwd_mma_set_elems<D>(tp)) * sizeof(bf16_t);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwdMaxTokens * 2, 1)  // 9 warps at T = 144, one block an SM
+window_attention_bwd_mma_kernel(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
+                                const bf16_t* __restrict__ v, const bf16_t* __restrict__ o,
+                                const bf16_t* __restrict__ dout, const float* __restrict__ lse,
+                                const float* __restrict__ bias, const float* __restrict__ mask,
+                                const uint8_t* __restrict__ mask_used,
+                                bf16_t* __restrict__ dq, bf16_t* __restrict__ dk,
+                                bf16_t* __restrict__ dv, float* __restrict__ part, int windows,
+                                int heads, int t, int n_img_windows, int sets, float scale) {
+  constexpr int ld = D + 8;
+  const int tp = (t + 15) & ~15;  // tokens padded to whole 16-row tiles: one warp each
+  const int steps = tp / 16;
+  const int ldp = tp + 8;
+  const int tile = tp * ld, set_elems = bwd_mma_set_elems<D>(tp);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16_t* sp = reinterpret_cast<bf16_t*>(smem_raw);  // P (tp, ldp), [query][key]
+  bf16_t* sds = sp + tp * ldp;                        // dS, the same
+  bf16_t* tiles = sds + tp * ldp;  // `sets` x (Q, K, V, dO, O (tp, ld) each, lse (tp) f32)
+
+  const int h = blockIdx.y, run = blockIdx.x, runs = gridDim.x;  // windows run, run + runs, ...
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
+  const int r0 = warp * 16 + g;  // the lane's rows (queries, then keys) r0 and r0 + 8
+  const float* bias_h = bias + static_cast<long long>(h) * t * t;
+  auto stage = [&](int set, int w) {
+    const long long wh = static_cast<long long>(w) * heads + h;
+    bf16_t* dst = tiles + set * set_elems;
+    stage_tile<D>(dst, q + wh * t * D, t, tp);
+    stage_tile<D>(dst + tile, k + wh * t * D, t, tp);
+    stage_tile<D>(dst + 2 * tile, v + wh * t * D, t, tp);
+    stage_tile<D>(dst + 3 * tile, dout + wh * t * D, t, tp);
+    stage_tile<D>(dst + 4 * tile, o + wh * t * D, t, tp);
+    float* sl = reinterpret_cast<float*>(dst + 5 * tile);
+    for (int r = threadIdx.x; r < tp; r += blockDim.x)
+      cp_async_4(sl + r, lse + wh * t + (r < t ? r : 0), r < t);
+  };
+  // bias + mask of the lane's elements of 16-key step ks, in the C-fragment
+  // layout (2 n8 tiles); 0 for a padded query or key. Pairs of columns are
+  // read as float2 where T is even (then every pair is 8-byte aligned).
+  const bool pairs = t % 2 == 0;
+  auto load_bias = [&](float (&bm)[2][4], const float* mask_w, int ks) {
+#pragma unroll
+    for (int jt = 0; jt < 2; ++jt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int i = r0 + 8 * hh, j = ks * 16 + jt * 8 + 2 * tig;
+        float2 x = make_float2(0.f, 0.f);
+        if (i < t && j < t) {
+          const int at = i * t + j;
+          if (pairs) {
+            x = *reinterpret_cast<const float2*>(bias_h + at);
+            if (mask_w) {
+              const float2 m = *reinterpret_cast<const float2*>(mask_w + at);
+              x.x += m.x;
+              x.y += m.y;
+            }
+          } else {
+            x.x = bias_h[at] + (mask_w ? mask_w[at] : 0.f);
+            if (j + 1 < t) x.y = bias_h[at + 1] + (mask_w ? mask_w[at + 1] : 0.f);
+          }
+        }
+        bm[jt][2 * hh] = x.x;
+        bm[jt][2 * hh + 1] = x.y;
+      }
+  };
+
+  // this run's sum of dS in the C-fragment layout of the lane's rows: element
+  // (n, e) is row r0 + 8 (e / 2), column 8 n + 2 tig + e % 2
+  float acc_bias[2 * kMaxKeySteps][4];
+#pragma unroll
+  for (int n = 0; n < 2 * kMaxKeySteps; ++n)
+    acc_bias[n][0] = acc_bias[n][1] = acc_bias[n][2] = acc_bias[n][3] = 0.f;
+
+  if (run < windows) stage(0, run);
+  cp_async_commit();
+  for (int w = run, nth = 0; w < windows; w += runs, ++nth) {
+    const int set = sets == 2 ? nth & 1 : 0;
+    if (sets == 2 && w + runs < windows) stage(set ^ 1, w + runs);
+    cp_async_commit();
+    cp_async_wait<1>();  // window w's copies are done
+    __syncthreads();
+    const bf16_t* sq = tiles + set * set_elems;
+    const bf16_t* sk = sq + tile;
+    const bf16_t* sv = sk + tile;
+    const bf16_t* sdo = sv + tile;
+    const bf16_t* so = sdo + tile;
+    const float* sl = reinterpret_cast<const float*>(so + tile);
+    const long long wh = static_cast<long long>(w) * heads + h;
+    const int wi = w % n_img_windows;  // a mask that is all zero is not read
+    const float* mask_w = mask && mask_used[wi] ? mask + static_cast<long long>(wi) * t * t : nullptr;
+
+    // (1) rows: the warp's 16 queries against every key
+    {
+      // Delta of row (lane / 2) of the warp, two lanes a row, half of D each
+      float dl = 0.f;
+      {
+        const int at = (warp * 16 + lane / 2) * ld + (lane & 1) * (D / 2);  // padded rows: 0
+#pragma unroll
+        for (int d = 0; d < D / 2; d += 2) {
+          const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sdo + at + d));
+          const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(so + at + d));
+          dl += x.x * y.x + x.y * y.y;
+        }
+        dl += __shfl_xor_sync(0xffffffffu, dl, 1);
+      }
+      const float dl0 = __shfl_sync(0xffffffffu, dl, 2 * g);
+      const float dl1 = __shfl_sync(0xffffffffu, dl, 2 * (g + 8));
+      const float lse0 = sl[r0] * kLog2e, lse1 = sl[r0 + 8] * kLog2e;
+      uint32_t qa[D / 16][4], da[D / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int at = (warp * 16 + lane % 16) * ld + kk * 16 + (lane / 16) * 8;
+        ldmatrix_x4(qa[kk], sq + at);
+        ldmatrix_x4(da[kk], sdo + at);
+      }
+      float acc_dq[D / 8][4];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) acc_dq[n][0] = acc_dq[n][1] = acc_dq[n][2] = acc_dq[n][3] = 0.f;
+
+      float bm[2][4];
+      load_bias(bm, mask_w, 0);
+#pragma unroll
+      for (int ks = 0; ks < kMaxKeySteps; ++ks) {  // 16 keys at a time
+        if (ks >= steps) break;
+        float bm_next[2][4] = {};  // the next step's, read while this one computes
+        if (ks + 1 < steps) load_bias(bm_next, mask_w, ks + 1);
+        float s[2][4] = {}, dp[2][4] = {};
+        mma_rows_t<D, 2>(s, qa, sk + ks * 16 * ld, lane);
+        mma_rows_t<D, 2>(dp, da, sv + ks * 16 * ld, lane);
+        uint32_t pa[1][4], dsa[1][4];
+#pragma unroll
+        for (int jt = 0; jt < 2; ++jt) {
+          float p[4], ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = r0 + 8 * (e >> 1), j = ks * 16 + jt * 8 + 2 * tig + (e & 1);
+            p[e] = ds[e] = 0.f;
+            if (i < t && j < t) {
+              const float x = fmaf(s[jt][e], scale, bm[jt][e]);
+              p[e] = exp2_approx(fmaf(x, kLog2e, -(e >> 1 ? lse1 : lse0)));
+              ds[e] = p[e] * (dp[jt][e] - (e >> 1 ? dl1 : dl0));
+            }
+            acc_bias[2 * ks + jt][e] += ds[e];
+          }
+          pa[0][jt * 2] = pack_bf16x2(p[0], p[1]);
+          pa[0][jt * 2 + 1] = pack_bf16x2(p[2], p[3]);
+          dsa[0][jt * 2] = pack_bf16x2(ds[0], ds[1]);
+          dsa[0][jt * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
+          const int at = r0 * ldp + ks * 16 + jt * 8 + 2 * tig;
+          *reinterpret_cast<uint32_t*>(sp + at) = pa[0][jt * 2];
+          *reinterpret_cast<uint32_t*>(sp + at + 8 * ldp) = pa[0][jt * 2 + 1];
+          *reinterpret_cast<uint32_t*>(sds + at) = dsa[0][jt * 2];
+          *reinterpret_cast<uint32_t*>(sds + at + 8 * ldp) = dsa[0][jt * 2 + 1];
+        }
+        mma_rows<D, 1>(acc_dq, dsa, sk + ks * 16 * ld, lane);
+#pragma unroll
+        for (int jt = 0; jt < 2; ++jt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) bm[jt][e] = bm_next[jt][e];
+      }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const int col = n * 8 + 2 * tig;
+        if (r0 < t)
+          *reinterpret_cast<uint32_t*>(dq + (wh * t + r0) * D + col) =
+              pack_bf16x2(acc_dq[n][0] * scale, acc_dq[n][1] * scale);
+        if (r0 + 8 < t)
+          *reinterpret_cast<uint32_t*>(dq + (wh * t + r0 + 8) * D + col) =
+              pack_bf16x2(acc_dq[n][2] * scale, acc_dq[n][3] * scale);
+      }
+    }
+    __syncthreads();  // P and dS are complete
+
+    // (2) columns: the warp's 16 keys against every query
+    {
+      float acc_dk[D / 8][4], acc_dv[D / 8][4];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_dk[n][e] = acc_dv[n][e] = 0.f;
+      // A fragments of P^T and dS^T: matrix l / 8 of the four holds queries
+      // +8 (l / 16) and keys +8 (l / 8 % 2) of the 16 x 16 block
+      const int mi = lane / 8;
+      const int at = ((mi >> 1) * 8 + lane % 8) * ldp + warp * 16 + (mi & 1) * 8;
+#pragma unroll
+      for (int qs = 0; qs < kMaxKeySteps; ++qs) {  // 16 queries at a time
+        if (qs >= steps) break;
+        uint32_t pt[1][4], dst[1][4];
+        ldmatrix_x4_trans(pt[0], sp + qs * 16 * ldp + at);
+        ldmatrix_x4_trans(dst[0], sds + qs * 16 * ldp + at);
+        mma_rows<D, 1>(acc_dv, pt, sdo + qs * 16 * ld, lane);
+        mma_rows<D, 1>(acc_dk, dst, sq + qs * 16 * ld, lane);
+      }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const int col = n * 8 + 2 * tig;
+        if (r0 < t) {
+          const long long at_k = (wh * t + r0) * D + col;
+          *reinterpret_cast<uint32_t*>(dk + at_k) = pack_bf16x2(acc_dk[n][0] * scale, acc_dk[n][1] * scale);
+          *reinterpret_cast<uint32_t*>(dv + at_k) = pack_bf16x2(acc_dv[n][0], acc_dv[n][1]);
+        }
+        if (r0 + 8 < t) {
+          const long long at_k = (wh * t + r0 + 8) * D + col;
+          *reinterpret_cast<uint32_t*>(dk + at_k) = pack_bf16x2(acc_dk[n][2] * scale, acc_dk[n][3] * scale);
+          *reinterpret_cast<uint32_t*>(dv + at_k) = pack_bf16x2(acc_dv[n][2], acc_dv[n][3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this window's tiles, P and dS
+    if (sets == 1 && w + runs < windows) {
+      stage(0, w + runs);
+      cp_async_commit();
+    }
   }
-  return count;
+
+  float* out = part + (static_cast<long long>(run) * heads + h) * t * t;
+#pragma unroll
+  for (int n = 0; n < 2 * kMaxKeySteps; ++n) {
+    if (n >= 2 * steps) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = r0 + 8 * (e >> 1), j = n * 8 + 2 * tig + (e & 1);
+      if (i < t && j < t) out[i * t + j] = acc_bias[n][e];
+    }
+  }
+}
+
+// dbias = the sum of the `runs` partials (runs, n) in run order
+__global__ void window_attention_dbias_reduce_kernel(const float* __restrict__ part,
+                                                     float* __restrict__ dbias, long long n,
+                                                     int runs) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float sum = 0.f;
+    for (int r = 0; r < runs; ++r) sum += part[r * n + i];
+    dbias[i] = sum;
+  }
 }
 
 template <typename T, int D>
@@ -271,38 +563,65 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* bias, co
 
 template <typename T, int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
-               const void* lse, const void* bias, const void* mask, void* dq, void* dk, void* dv,
-               void* dbias, int windows, int heads, int t, int n_img_windows,
-               cudaStream_t stream) {
-  const size_t smem =
-      (4 * static_cast<size_t>(t) * (D + 1) + static_cast<size_t>(t) * t + 2 * t +
-       2 * kBwdWarps * t) * sizeof(float);
-  if (smem > kSharedLimit) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = window_attention_bwd_kernel<T, D>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (windows > 0 && heads > 0) {
-    // about four blocks per SM over the whole grid; each block adds its dBias once
-    const int blocks_per_head = max(1, min(windows, (4 * sm_count() + heads - 1) / heads));
-    const int per_block = (windows + blocks_per_head - 1) / blocks_per_head;
-    const dim3 grid((windows + per_block - 1) / per_block, heads);
+               const void* lse, const void* bias, const void* mask, const void* mask_used,
+               void* dq, void* dk, void* dv, void* dbias, void* part, int windows, int heads,
+               int t, int n_img_windows, int runs, cudaStream_t stream) {
+  if (windows <= 0 || heads <= 0) return static_cast<int>(cudaGetLastError());
+  if (runs < 1 || runs > windows) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(runs, heads);
+  if constexpr (std::is_same<T, bf16_t>::value) {
+    const int tp = (t + 15) & ~15;
+    const int sets = bwd_mma_shared_bytes<D>(tp, 2) <= kSharedLimit ? 2 : 1;
+    const size_t smem = bwd_mma_shared_bytes<D>(tp, sets);
+    if (smem > kSharedLimit || (mask != nullptr && mask_used == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    auto kernel = window_attention_bwd_mma_kernel<D>;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    kernel<<<grid, tp * 2, smem, stream>>>(
+        static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
+        static_cast<const bf16_t*>(v), static_cast<const bf16_t*>(o),
+        static_cast<const bf16_t*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(bias), static_cast<const float*>(mask),
+        static_cast<const uint8_t*>(mask_used), static_cast<bf16_t*>(dq),
+        static_cast<bf16_t*>(dk), static_cast<bf16_t*>(dv),
+        static_cast<float*>(part), windows, heads, t, n_img_windows, sets,
+        1.f / sqrtf(static_cast<float>(D)));
+  } else {
+    const size_t smem =
+        (4 * static_cast<size_t>(t) * (D + 1) + 2 * t + 2 * kBwdWarps * t) * sizeof(float);
+    if (smem > kSharedLimit) return static_cast<int>(cudaErrorInvalidValue);
+    auto kernel = window_attention_bwd_kernel<T, D>;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     kernel<<<grid, kBwdThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<const float*>(lse),
         static_cast<const float*>(bias), static_cast<const float*>(mask), static_cast<T*>(dq),
-        static_cast<T*>(dk), static_cast<T*>(dv), static_cast<float*>(dbias), windows, heads, t,
-        n_img_windows, per_block, sqrtf(static_cast<float>(D)));
+        static_cast<T*>(dk), static_cast<T*>(dv), static_cast<float*>(part), windows, heads, t,
+        n_img_windows, sqrtf(static_cast<float>(D)));
   }
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const long long n = static_cast<long long>(heads) * t * t;
+  const int blocks = static_cast<int>(std::min((n + 255) / 256, 4096LL));
+  window_attention_dbias_reduce_kernel<<<blocks, 256, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<float*>(dbias), n, runs);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // All pointers are device pointers to contiguous arrays: q/k/v/o/dout/dq/dk/dv
-// (windows, heads, tokens, head_dim) in bf16 (bf16 != 0) or f32; lse
-// (windows, heads, tokens) f32; bias and dbias (heads, tokens, tokens) f32;
-// mask (n_img_windows, tokens, tokens) f32 or null. tokens <= 256 and
-// head_dim in {16, 32, 64}. Launch on `stream`; return cudaGetLastError() (or
-// cudaErrorInvalidValue for a shape the kernels do not take).
+// (windows, heads, tokens, head_dim) in bf16 (bf16 != 0; q/k/v/dout 16-byte
+// aligned) or f32; lse (windows, heads, tokens) f32; bias and dbias (heads,
+// tokens, tokens) f32; mask (n_img_windows, tokens, tokens) f32 or null, and
+// with it mask_used (n_img_windows) bytes, 0 where that window's mask is all
+// zero (the bf16 backward then skips it; the f32 backward ignores it); part
+// f32 scratch of runs * heads * tokens * tokens, the backward's dBias
+// partials, one for each of its `runs` runs of windows (1 <= runs <=
+// windows; run r takes windows r, r + runs, r + 2 runs, ...). The forward takes tokens <= 256, the backward
+// tokens <= 144; head_dim in {16, 32, 64}. Launch on `stream`; return
+// cudaGetLastError() (or cudaErrorInvalidValue for a shape the kernels do
+// not take).
 extern "C" int wis_window_attention_fwd(const void* q, const void* k, const void* v,
                                         const void* bias, const void* mask, void* o, void* lse,
                                         int windows, int heads, int tokens, int head_dim,
@@ -316,12 +635,14 @@ extern "C" int wis_window_attention_fwd(const void* q, const void* k, const void
 
 extern "C" int wis_window_attention_bwd(const void* q, const void* k, const void* v,
                                         const void* o, const void* dout, const void* lse,
-                                        const void* bias, const void* mask, void* dq, void* dk,
-                                        void* dv, void* dbias, int windows, int heads, int tokens,
-                                        int head_dim, int n_img_windows, int bf16, void* stream) {
-  if (tokens < 1 || tokens > kMaxTokens || n_img_windows < 1) {
+                                        const void* bias, const void* mask,
+                                        const void* mask_used, void* dq, void* dk, void* dv,
+                                        void* dbias, void* part, int windows,
+                                        int heads, int tokens, int head_dim, int n_img_windows,
+                                        int bf16, int runs, void* stream) {
+  if (tokens < 1 || tokens > kBwdMaxTokens || n_img_windows < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  WIS_DISPATCH(launch_bwd, q, k, v, o, dout, lse, bias, mask, dq, dk, dv, dbias, windows, heads,
-               tokens, n_img_windows, static_cast<cudaStream_t>(stream))
+  WIS_DISPATCH(launch_bwd, q, k, v, o, dout, lse, bias, mask, mask_used, dq, dk, dv, dbias, part,
+               windows, heads, tokens, n_img_windows, runs, static_cast<cudaStream_t>(stream))
 }

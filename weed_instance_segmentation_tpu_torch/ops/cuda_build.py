@@ -9,7 +9,8 @@ Sources do not include PyTorch's headers, which keeps a build to seconds.
 
 A failed build raises; there is no fallback. The wrappers bind an entry point
 with :func:`entry_point`, call it with :func:`launch` (which raises on a CUDA
-error) and check attention inputs with :func:`check_attention_inputs`.
+error), check attention inputs with :func:`check_attention_inputs` and size
+their grids with :func:`sm_count`.
 """
 
 from __future__ import annotations
@@ -107,6 +108,12 @@ def launch(fn, device: torch.device, what: str, *args) -> None:
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'{what} launch failed: CUDA error {err}')
+
+
+@functools.cache
+def sm_count(device_index: int) -> int:
+    """The number of SMs of a CUDA device."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def check_attention_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, others,

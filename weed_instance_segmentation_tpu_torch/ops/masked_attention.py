@@ -25,12 +25,10 @@ forward launch adds one to ``masked_attention.launches``, each backward to
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from weed_instance_segmentation_tpu_torch.ops.cuda_build import (
-    check_attention_inputs, entry_point, launch,
+    check_attention_inputs, entry_point, launch, sm_count,
 )
 
 _LIBRARY = 'masked_attention'
@@ -85,11 +83,6 @@ def key_chunks(batch_heads: int, nq: int, ns: int, sms: int) -> int:
     return -(-key_tiles // -(-key_tiles // chunks))
 
 
-@functools.cache
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 class _MaskedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, mask):
@@ -99,7 +92,7 @@ class _MaskedAttention(torch.autograd.Function):
         lse = torch.empty((b, heads, nq), dtype=torch.float32, device=q.device)
         chunks, part = 1, None  # the f32 kernel takes no key split
         if bf16:
-            chunks = key_chunks(b * heads, nq, ns, _sm_count(q.device.index))
+            chunks = key_chunks(b * heads, nq, ns, sm_count(q.device.index))
             if chunks > 1:  # the chunks' O (chunks, B, H, Q, D), then their row (max, sum)
                 part = torch.empty(chunks * b * heads * nq * (head_dim + 2), dtype=torch.float32,
                                    device=q.device)
@@ -125,7 +118,7 @@ class _MaskedAttention(torch.autograd.Function):
         delta = torch.empty_like(lse)
         chunks, dq_part = 0, None  # the f32 kernels take no key split
         if bf16:
-            chunks = key_chunks(b * heads, nq, ns, _sm_count(q.device.index))
+            chunks = key_chunks(b * heads, nq, ns, sm_count(q.device.index))
             dq_part = torch.empty((chunks, *q.shape), dtype=torch.float32, device=q.device)
         launch(entry_point(_LIBRARY, 'wis_masked_attention_bwd', 12, 7), q.device,
                f'masked attention backward for q {tuple(q.shape)}',

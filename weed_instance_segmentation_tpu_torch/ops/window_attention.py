@@ -13,9 +13,14 @@ image ``w // nW_img`` and takes mask ``w % nW_img``.
 A CUDA tensor goes to ``csrc/window_attention.cu`` through a
 ``torch.autograd.Function`` whose backward is the hand-written backward
 kernel (dQ, dK, dV, and dBias summed over windows); a CPU tensor goes to
-:func:`window_attention_plain` under autograd. There is no fallback: on a
-CUDA tensor the wrapper launches the kernels or raises. Each launch adds one
-to ``window_attention.launches`` (forward) or
+:func:`window_attention_plain` under autograd. In bfloat16 the backward runs
+on tensor cores. Each block of the backward takes one head and a run of
+windows (:func:`window_runs`) and writes its dBias partial to a float32
+scratch that a second launch sums in run order, so dBias has the same bits
+on every call. The forward takes T ≤ ``MAX_TOKENS``, the backward T ≤
+``BACKWARD_MAX_TOKENS``. There is no fallback: on a CUDA tensor the wrapper
+launches the kernels or raises. Each forward call adds one to
+``window_attention.launches``, each backward call to
 ``window_attention.backward_launches``.
 """
 
@@ -26,12 +31,13 @@ import math
 import torch
 
 from weed_instance_segmentation_tpu_torch.ops.cuda_build import (
-    check_attention_inputs, entry_point, launch,
+    check_attention_inputs, entry_point, launch, sm_count,
 )
 
 _LIBRARY = 'window_attention'
 HEAD_DIMS = (16, 32, 64)
-MAX_TOKENS = 256
+MAX_TOKENS = 256  # the forward
+BACKWARD_MAX_TOKENS = 144  # the backward: Swin's window 12; its bf16 dBias sum lives in registers
 
 
 def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -69,10 +75,27 @@ def _check(q, k, v, rel_bias, attn_mask) -> None:
 def _check_kernel(q, k, v, rel_bias, attn_mask) -> None:
     extra = [rel_bias] + ([] if attn_mask is None else [attn_mask])
     check_attention_inputs(q, k, v, extra, HEAD_DIMS)
-    if q.shape[2] > MAX_TOKENS:
+    tokens = q.shape[2]
+    if tokens > MAX_TOKENS:
         raise ValueError(f'the kernel takes at most {MAX_TOKENS} tokens, got {tuple(q.shape)}')
+    if tokens > BACKWARD_MAX_TOKENS and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, rel_bias)):
+        raise ValueError(f'the backward kernel takes at most {BACKWARD_MAX_TOKENS} tokens, got '
+                         f'{tuple(q.shape)} with an input that requires grad')
     if any(t.dtype != torch.float32 for t in extra):
         raise TypeError('rel_bias and attn_mask must be float32')
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError('the bfloat16 backward reads 16-byte vectors: q, k and v must start '
+                         'at 16-byte-aligned addresses')
+
+
+def window_runs(windows: int, heads: int, sms: int) -> int:
+    """How many runs of windows the backward splits each head into: one
+    (run, head) block for each of ``sms`` SMs (the bf16 block at T = 144
+    fills an SM alone), at least one and none empty. Run r takes windows
+    r, r + runs, r + 2·runs, …, so the windows with a nonzero shift mask,
+    which cost more, spread over the runs."""
+    return max(1, min(windows, sms // heads))
 
 
 class _WindowAttention(torch.autograd.Function):
@@ -96,17 +119,24 @@ class _WindowAttention(torch.autograd.Function):
     def backward(ctx, grad_out):
         q, k, v, out, lse, rel_bias, attn_mask = ctx.saved_tensors
         grad_out = grad_out.to(q.dtype).contiguous()
+        if grad_out.data_ptr() % 16:
+            grad_out = grad_out.clone()
         nw, heads, tokens, head_dim = q.shape
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        dbias = torch.zeros((heads, tokens, tokens), dtype=torch.float32, device=q.device)
-        n_img = 1 if attn_mask is None else attn_mask.shape[0]
-        launch(entry_point(_LIBRARY, 'wis_window_attention_bwd', 12, 6), q.device,
+        dbias = torch.empty((heads, tokens, tokens), dtype=torch.float32, device=q.device)
+        runs = window_runs(nw, heads, sm_count(q.device.index))
+        part = torch.empty((runs, heads, tokens, tokens), dtype=torch.float32, device=q.device)
+        n_img, mask_used = 1, None
+        if attn_mask is not None:  # which windows' masks hold a nonzero entry
+            n_img, mask_used = attn_mask.shape[0], attn_mask.flatten(1).any(1).byte()
+        launch(entry_point(_LIBRARY, 'wis_window_attention_bwd', 14, 7), q.device,
                f'window attention backward for q {tuple(q.shape)}',
                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
                lse.data_ptr(), rel_bias.data_ptr(),
-               None if attn_mask is None else attn_mask.data_ptr(), dq.data_ptr(),
-               dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), nw, heads, tokens, head_dim,
-               n_img, int(q.dtype == torch.bfloat16))
+               None if attn_mask is None else attn_mask.data_ptr(),
+               None if mask_used is None else mask_used.data_ptr(), dq.data_ptr(),
+               dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), part.data_ptr(), nw, heads,
+               tokens, head_dim, n_img, int(q.dtype == torch.bfloat16), runs)
         window_attention.backward_launches += 1
         return dq, dk, dv, dbias, None
 
@@ -118,8 +148,9 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (nW_img, T, T) shift mask → (NW, H, T, D) in q's dtype.
 
     On CUDA tensors this launches the kernel (q/k/v float32 or bfloat16,
-    contiguous, D in {16, 32, 64}, T ≤ 256; rel_bias and attn_mask float32)
-    and its backward kernel under autograd; the mask takes no gradient. On CPU
+    contiguous, D in {16, 32, 64}, T ≤ 256, and T ≤ 144 when an input requires
+    grad; bfloat16 16-byte aligned; rel_bias and attn_mask float32) and its
+    backward kernel under autograd; the mask takes no gradient. On CPU
     tensors it runs :func:`window_attention_plain`."""
     _check(q, k, v, rel_bias, attn_mask)
     if q.device.type == 'cpu':
