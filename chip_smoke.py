@@ -14,7 +14,8 @@ Phases, each of which must pass (the script exits non-zero on any failure):
    the post-process kernel at the serving shape; window attention forward
    and backward at Swin-L training batch 2, stage 1 (NW 578, H 6, T 144,
    D 32) and stage 3 (NW 50, H 24), with and without the shift mask, f32
-   and bf16, the backward twice on the same inputs for the same bits, each
+   and bf16, the backward twice on the same inputs for the same bits, and
+   the bf16 forward alone at the serving batch 4 (NW 1156 and 100), each
    stage's times under ``by_stage`` in the summary; masked attention
    forward and backward at B 2, H 8, Q 200, D 32, S in {10000, 2500, 625}
    (f32 on the CUDA-core kernels, bf16 on the tensor-core kernels, forward
@@ -327,8 +328,38 @@ def _timing_line(what: str, t: dict, bound_: dict) -> str:
             f'{dev["library"]:.4f} ms; bound {bound_["bound_ms"]:.4f} ms ({bound_["bound_by"]})')
 
 
-WINDOW_STAGES = {  # Swin-L at 800², training batch 2: (padded map side, heads)
-    'stage1_b2': (204, 6), 'stage3_b2': (60, 24)}
+WINDOW_SIZE, WINDOW_HEAD_DIM = 12, 32  # Swin-L: T 144, D 32
+WINDOW_STAGES = {  # Swin-L at 800², training batch 2: (images, padded map side, heads)
+    'stage1_b2': (TRAIN_BATCH, 204, 6), 'stage3_b2': (TRAIN_BATCH, 60, 24)}
+SERVING_WINDOW_STAGES = {  # the same at the serving batch
+    'stage1_b4': (SERVING_BATCH, 204, 6), 'stage3_b4': (SERVING_BATCH, 60, 24)}
+
+
+def window_inputs(dev: torch.device, images: int, hp: int, heads: int) -> tuple:
+    """Swin-L window-attention inputs in float32 for ``images`` padded maps
+    of side ``hp``: q, k, v (NW, H, 144, 32), the bias (H, 144, 144) and the
+    shift mask (nW_img, 144, 144)."""
+    nw, t = images * (hp // WINDOW_SIZE) ** 2, WINDOW_SIZE ** 2
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn((nw, heads, t, WINDOW_HEAD_DIM), generator=g, device=dev)
+               for _ in range(3))
+    bias = torch.randn((heads, t, t), generator=g, device=dev)
+    mask = torch.from_numpy(
+        shifted_window_attn_mask(hp, hp, WINDOW_SIZE, WINDOW_SIZE // 2)).to(dev)
+    return q, k, v, bias, mask
+
+
+def _window_bounds(q: torch.Tensor, mask: torch.Tensor) -> dict:
+    """The forward's and the backward's bound for bf16 q/k/v of q's shape,
+    with the shift mask."""
+    nw, heads, t, d = q.shape
+    qkv_bytes = nw * heads * t * d * 2
+    const_bytes = (heads + mask.shape[0]) * t * t * 4
+    lse_bytes = nw * heads * t * 4
+    pair_flops = nw * heads * t * t * d
+    return {'fwd': bound(4 * qkv_bytes + const_bytes + lse_bytes, 4 * pair_flops, torch.bfloat16),
+            'bwd': bound(8 * qkv_bytes + const_bytes + lse_bytes + heads * t * t * 4,
+                         10 * pair_flops, torch.bfloat16)}
 
 
 def _window_backward_repeats(q, k, v, bias, mask, dtype) -> bool:
@@ -346,17 +377,12 @@ def _window_backward_repeats(q, k, v, bias, mask, dtype) -> bool:
 def phase_window_attention(dev: torch.device) -> dict:
     """Swin-L at training batch 2, window 12 (T 144, D 32): stage 1
     (2 x 17 x 17 windows, 6 heads) and stage 3 (2 x 5 x 5 windows, 24
-    heads)."""
-    images, ws, d = TRAIN_BATCH, 12, 32
-    t = ws * ws
+    heads); then the bf16 forward alone at the serving batch 4."""
     levels = {'fwd': {}, 'bwd': {}}
-    for stage, (hp, heads) in WINDOW_STAGES.items():
-        nw = images * (hp // ws) ** 2
-        g = torch.Generator(device=dev).manual_seed(1)
-        q, k, v = (torch.randn((nw, heads, t, d), generator=g, device=dev) for _ in range(3))
-        bias = torch.randn((heads, t, t), generator=g, device=dev)
-        mask = torch.from_numpy(shifted_window_attn_mask(hp, hp, ws, ws // 2)).to(dev)
-        log(f'window attention vs plain at {stage}: NW={nw}, H={heads}, T={t}, D={d}:')
+    for stage, (images, hp, heads) in WINDOW_STAGES.items():
+        q, k, v, bias, mask = window_inputs(dev, images, hp, heads)
+        log(f'window attention vs plain at {stage}: NW={q.shape[0]}, H={heads}, '
+            f'T={q.shape[2]}, D={q.shape[3]}:')
         errs = {}
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             for m in (None, mask):
@@ -372,21 +398,39 @@ def phase_window_attention(dev: torch.device) -> dict:
         full_mask = (bias[None] + mask.repeat(images, 1, 1)[:, None]).to(torch.bfloat16)
         t_ms = _time_fwd_bwd(window_attention, window_attention_plain, _sdpa(None),
                              [qb, kb, vb, bias], (mask,), (full_mask,))
-        qkv_bytes = nw * heads * t * d * 2
-        const_bytes = (heads + mask.shape[0]) * t * t * 4
-        lse_bytes = nw * heads * t * 4
-        pair_flops = nw * heads * t * t * d
-        bounds = {'fwd': bound(4 * qkv_bytes + const_bytes + lse_bytes, 4 * pair_flops,
-                               torch.bfloat16),
-                  'bwd': bound(8 * qkv_bytes + const_bytes + lse_bytes + heads * t * t * 4,
-                               10 * pair_flops, torch.bfloat16)}
+        bounds = _window_bounds(q, mask)
         for i, phase in enumerate(('fwd', 'bwd')):
             log(_timing_line(f'{phase} bf16 shifted {stage}', t_ms[phase], bounds[phase]))
             levels[phase][stage] = _summary(t_ms[phase], bounds[phase],
                                             errs[torch.bfloat16, True][i])
-    # the summary line reports stage 1, and every stage under by_stage
+    levels['fwd'].update(_window_forward_serving(dev))
+    # the summary line reports stage 1 at batch 2, and every stage under by_stage
     return {f'window_attention_{phase}': {**by_stage['stage1_b2'], 'by_stage': by_stage}
             for phase, by_stage in levels.items()}
+
+
+def _window_forward_serving(dev: torch.device) -> dict:
+    """The bf16 forward alone, shifted, at the serving batch 4: stage 1
+    (NW 1156, H 6) and stage 3 (NW 100, H 24)."""
+    result = {}
+    for stage, (images, hp, heads) in SERVING_WINDOW_STAGES.items():
+        q, k, v, bias, mask = window_inputs(dev, images, hp, heads)
+        qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+        err, rel = _rel_errors(window_attention(qb, kb, vb, bias, mask),
+                               window_attention_plain(qb.float(), kb.float(), vb.float(), bias, mask))
+        log(f'window attention forward at {stage}: NW={q.shape[0]}, H={heads}, bf16 shifted: '
+            f'out rel err {rel:.2e} (tolerance 0.02)')
+        check(rel <= 2e-2, f'window forward at {stage}: {rel:.3e} beyond 0.02')
+        full_mask = (bias[None] + mask.repeat(images, 1, 1)[:, None]).to(torch.bfloat16)
+        fns = {'plain': lambda: window_attention_plain(qb, kb, vb, bias, mask),
+               'kernel': lambda: window_attention(qb, kb, vb, bias, mask),
+               'library': lambda: _sdpa(None)(qb, kb, vb, full_mask)}
+        t = {**timed_in_turns(fns), 'device': {name: device_ms(fn) for name, fn in fns.items()}}
+        bound_ = _window_bounds(q, mask)['fwd']
+        log(_timing_line(f'fwd bf16 shifted {stage}', t, bound_))
+        result[stage] = _summary(t, bound_, err)
+        del q, k, v, qb, kb, vb, full_mask, fns
+    return result
 
 
 def masked_inputs(dev: torch.device, b: int, s: int, heads: int = 8, nq: int = 200,

@@ -8,6 +8,7 @@ run on a machine that has only PyTorch and the CUDA toolkit:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m cuda
 """
 
+import json
 import math
 
 import numpy as np
@@ -25,7 +26,7 @@ from weed_instance_segmentation_tpu_torch.ops.postprocess_kernel import (
 from weed_instance_segmentation_tpu_torch.ops.resize import bilinear_resize_matrix
 from weed_instance_segmentation_tpu_torch.ops import window_attention as window_ops
 from weed_instance_segmentation_tpu_torch.ops.window_attention import (
-    BACKWARD_MAX_TOKENS, window_attention, window_attention_plain, window_runs,
+    BACKWARD_MAX_TOKENS, forward_key_steps, window_attention, window_attention_plain, window_runs,
 )
 
 
@@ -143,12 +144,16 @@ WINDOW_CASES = {  # (images, height, width of the padded map, window, heads, hea
     'swin-l-stage3-b2': (2, 60, 60, 12, 24, 32),
     'w12-d64': (1, 24, 24, 12, 2, 64),  # the bf16 backward's one-set-of-tiles path
 }
+FORWARD_CASES = {  # beyond the backward's T <= 144: T 169 and 256
+    'w13': (1, 26, 26, 13, 2, 32),
+    'w16-d64': (1, 32, 32, 16, 2, 64),
+}
 
 
 def _window_inputs(case, shifted, device, seed=1):
     """q, k, v (NW, H, T, D), the relative-position bias (H, T, T) and, if
     ``shifted``, the shift mask (nW_img, T, T), all float32."""
-    images, h, w, ws, heads, d = WINDOW_CASES[case]
+    images, h, w, ws, heads, d = {**WINDOW_CASES, **FORWARD_CASES}[case]
     nw, t = images * (h // ws) * (w // ws), ws * ws
     g = torch.Generator(device=device).manual_seed(seed)
     q, k, v = (torch.randn((nw, heads, t, d), generator=g, device=device) for _ in range(3))
@@ -175,6 +180,61 @@ def test_window_attention_kernels_match_plain(cuda_device, case, shifted, dtype,
     assert (window_attention.launches, window_attention.backward_launches) == \
         (launches[0] + 1, launches[1] + 1)
     assert max(errs.values()) <= tol, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shifted', [False, True], ids=['plain', 'shifted'])
+@pytest.mark.parametrize('case', list(FORWARD_CASES))
+def test_window_attention_forward_alone_matches_plain(cuda_device, case, shifted):
+    """The bf16 forward at T beyond the backward's limit (169 and 256), under
+    ``no_grad``: O within 2e-2 of the plain version's largest magnitude (in
+    f32 on the same bf16 values), one launch."""
+    q, k, v, bias, mask = _window_inputs(case, shifted, cuda_device)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    launches = window_attention.launches
+    with torch.no_grad():
+        out = window_attention(q, k, v, bias, mask)
+        want = window_attention_plain(q.float(), k.float(), v.float(), bias, mask)
+    torch.cuda.synchronize()
+    assert window_attention.launches == launches + 1
+    assert ((out.float() - want).abs().max() / want.abs().max()).item() <= 2e-2
+
+
+def _device_kernels(fn, tmp_path, attempts=3) -> list:
+    """The names of the device kernels, copies and fills that one call of
+    ``fn`` runs, from a ``torch.profiler`` trace (taken again when the
+    profiler returns a trace with no device events)."""
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(attempts):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        path = str(tmp_path / f'trace{attempt}.json')
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)['traceEvents']
+        names = [e['name'] for e in events if e.get('ph') == 'X'
+                 and e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')]
+        if names:
+            return names
+    raise RuntimeError(f'{attempts} profiler traces held no device events')
+
+
+@pytest.mark.cuda
+def test_window_attention_bf16_forward_launches_the_tensor_core_kernel(cuda_device, tmp_path):
+    """A bf16 forward runs one device kernel, window_attention_fwd_mma_kernel;
+    with the shift mask, also the PyTorch reduction that flags which image
+    windows' masks hold a nonzero entry, and no other window kernel."""
+    q, k, v, bias, mask = _window_inputs('swin-l-stage3-b2', True, cuda_device)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    with torch.no_grad():
+        plain = _device_kernels(lambda: window_attention(q, k, v, bias), tmp_path)
+        shifted = _device_kernels(lambda: window_attention(q, k, v, bias, mask), tmp_path)
+    assert len(plain) == 1 and 'window_attention_fwd_mma_kernel' in plain[0], plain
+    window = [n for n in shifted if 'window_attention' in n]
+    assert len(window) == 1 and 'window_attention_fwd_mma_kernel' in window[0], shifted
+    assert len(shifted) == 2, shifted
 
 
 @pytest.mark.cuda
@@ -471,3 +531,54 @@ def test_tiled_bf16_window_backward_arithmetic_matches_plain(case, shifted):
     got = _tiled_bf16_window_backward(q, k, v, bias, mask, dout, runs)
     for g_, t in zip(got, ins):
         assert ((g_ - t.grad).abs().max() / t.grad.abs().max()).item() <= 2e-2
+
+
+def _tiled_bf16_window_forward(q, k, v, bias, mask):
+    """The bf16 forward kernel's arithmetic in float32 on the CPU: the scores
+    scaled, with the bias and the mask, the tokens padded to whole 16-key
+    steps (a padded key scores −1e30 and its V row is zero), the keys walked
+    ``forward_key_steps(T)`` steps a pass with a running max and sum, P
+    rounded to bf16 before PV and the sum taken over the unrounded P, O / l
+    rounded to bf16. Returns (O, lse)."""
+    bf = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
+    nw, _, t, d = q.shape
+    scores = q @ k.transpose(-1, -2) / math.sqrt(d) + bias
+    if mask is not None:
+        scores = scores + mask.repeat(nw // mask.shape[0], 1, 1)[:, None]
+    pad = -t % 16
+    scores = F.pad(scores, (0, pad), value=-1e30)
+    v = F.pad(v, (0, 0, 0, pad))
+    width = 16 * forward_key_steps(t)
+    m = torch.full((*q.shape[:3], 1), -1e30)
+    l, acc = torch.zeros_like(m), torch.zeros_like(q)
+    for s0 in range(0, t + pad, width):
+        s = scores[..., s0:s0 + width]
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha, p = torch.exp(m - m_new), torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + bf(p) @ v[:, :, s0:s0 + width]
+        m = m_new
+    return bf(acc / l), (m + torch.log(l)).squeeze(-1)
+
+
+@pytest.mark.parametrize('case,shifted', [
+    *((c, s) for c in ('small', 'small-d64', 'swin-t-w7') for s in (False, True)),
+    ('w13', True)], ids=lambda x: x if isinstance(x, str) else ('shifted' if x else 'plain'))
+def test_tiled_bf16_window_forward_arithmetic_matches_plain(case, shifted):
+    """The bf16 forward's padding, softmax passes and rounding, rehearsed on
+    the CPU: O within the card test's 2e-2 of the plain float32 output on the
+    same bf16 values, and lse within 1e-5 of the true log-sum-exp (the
+    backward recomputes P from it). T = 169 (``w13``) takes more than one
+    pass."""
+    q, k, v, bias, mask = _window_inputs(case, shifted, torch.device('cpu'))
+    q, k, v = (t.to(torch.bfloat16).float() for t in (q, k, v))
+    t, d = q.shape[2:]
+    if case == 'w13':
+        assert 16 * forward_key_steps(t) < t
+    out, lse = _tiled_bf16_window_forward(q, k, v, bias, mask)
+    want = window_attention_plain(q, k, v, bias, mask)
+    assert ((out - want).abs().max() / want.abs().max()).item() <= 2e-2
+    scores = q @ k.transpose(-1, -2) / math.sqrt(d) + bias
+    if mask is not None:
+        scores = scores + mask.repeat(q.shape[0] // mask.shape[0], 1, 1)[:, None]
+    assert (lse - torch.logsumexp(scores, dim=-1)).abs().max().item() <= 1e-5

@@ -85,6 +85,7 @@ constexpr int kBwdMaxTokens = 144;  // the backward: the bf16 dBias accumulator'
 constexpr int kKeysPerLane = kMaxTokens / 32;
 constexpr int kMaxKeySteps = kBwdMaxTokens / 16;  // 16-key steps of the bf16 backward
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNoScore = -1e30f;  // a padded key's score, and the running max before the first key
 
 // (rows, D) contiguous → shared memory as f32 with row stride D + 1
 template <typename T, int D>
@@ -101,13 +102,13 @@ __device__ __forceinline__ void row_to_regs(float (&dst)[D], const float* src) {
   for (int d = 0; d < D; ++d) dst[d] = src[d];
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-window_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
+window_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v,
                             const float* __restrict__ bias,   // (H, T, T)
                             const float* __restrict__ mask,   // (nW_img, T, T) or null
-                            T* __restrict__ o,                // (NW, H, T, D)
+                            float* __restrict__ o,            // (NW, H, T, D)
                             float* __restrict__ lse,          // (NW, H, T)
                             int heads, int t, int n_img_windows, float sqrt_d) {
   extern __shared__ float smem[];
@@ -121,9 +122,9 @@ window_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = static_cast<int>(wh % heads);
   const long long w = wh / heads;
   const long long base = wh * t * D;
-  load_tile<T, D>(sq, q + base, t);
-  load_tile<T, D>(sk, k + base, t);
-  load_tile<T, D>(sv, v + base, t);
+  load_tile<float, D>(sq, q + base, t);
+  load_tile<float, D>(sk, k + base, t);
+  load_tile<float, D>(sv, v + base, t);
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -162,7 +163,7 @@ window_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int d = lane; d < D; d += 32) {
       float acc = 0.f;
       for (int j = 0; j < t; ++j) acc += p[j] * sv[j * ld + d];
-      o[base + i * D + d] = from_f<T>(acc / sum);
+      o[base + i * D + d] = acc / sum;
     }
     if (lane == 0) lse[wh * t + i] = mx + logf(sum);
     __syncwarp();  // p is rewritten for the next row
@@ -273,7 +274,7 @@ window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- the tensor-core (bf16) backward ----
+// ---- the tensor-core (bf16) kernels ----
 
 // rows [0, rows) of a (rows, D) bf16 array → shared bf16 with row stride
 // D + 8, by cp.async in 16-byte vectors from the whole block; rows
@@ -286,6 +287,187 @@ __device__ __forceinline__ void stage_tile(bf16_t* dst, const bf16_t* __restrict
     const int r = e / kVecs, c = (e - r * kVecs) * 8;
     const bool ok = r < rows;
     cp_async_16(dst + r * (D + 8) + c, src + (ok ? r * D + c : 0), ok);
+  }
+}
+
+// bias + mask (mask_w may be null) of the lane's elements of 16-key step ks,
+// in the C-fragment layout of the warp's rows (2 n8 tiles; element (n, e) is
+// row r0 + 8 (e / 2), column 16 ks + 8 n + 2 tig + e % 2); 0 for a padded
+// query or key. Pairs of columns are read as float2 where T is even (then
+// every pair is 8-byte aligned).
+__device__ __forceinline__ void load_bias(float (&bm)[2][4], const float* __restrict__ bias_h,
+                                          const float* __restrict__ mask_w, int t, int r0,
+                                          int tig, int ks) {
+  const bool pairs = t % 2 == 0;
+#pragma unroll
+  for (int jt = 0; jt < 2; ++jt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = r0 + 8 * hh, j = ks * 16 + jt * 8 + 2 * tig;
+      float2 x = make_float2(0.f, 0.f);
+      if (i < t && j < t) {
+        const int at = i * t + j;
+        if (pairs) {
+          x = *reinterpret_cast<const float2*>(bias_h + at);
+          if (mask_w) {
+            const float2 m = *reinterpret_cast<const float2*>(mask_w + at);
+            x.x += m.x;
+            x.y += m.y;
+          }
+        } else {
+          x.x = bias_h[at] + (mask_w ? mask_w[at] : 0.f);
+          if (j + 1 < t) x.y = bias_h[at + 1] + (mask_w ? mask_w[at + 1] : 0.f);
+        }
+      }
+      bm[jt][2 * hh] = x.x;
+      bm[jt][2 * hh + 1] = x.y;
+    }
+}
+
+// bytes of shared memory of a bf16 forward block: `sets` sets of Q, K and V
+// tiles (tp, D + 8)
+template <int D>
+size_t fwd_mma_shared_bytes(int tp, int sets) {
+  return static_cast<size_t>(sets) * 3 * tp * (D + 8) * sizeof(bf16_t);
+}
+
+// KC: the 16-key steps of one softmax pass (the running max is taken, and
+// the sums rescaled, once a pass); KC >= T / 16 is one pass over the row
+template <int D, int KC, int kMaxThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+window_attention_fwd_mma_kernel(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
+                                const bf16_t* __restrict__ v, const float* __restrict__ bias,
+                                const float* __restrict__ mask,
+                                const uint8_t* __restrict__ mask_used, bf16_t* __restrict__ o,
+                                float* __restrict__ lse, int windows, int heads, int t,
+                                int n_img_windows, int sets, float scale) {
+  constexpr int ld = D + 8;
+  const int tp = (t + 15) & ~15;  // tokens padded to whole 16-row tiles: one warp each
+  const int steps = tp / 16;
+  const int tile = tp * ld;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16_t* tiles = reinterpret_cast<bf16_t*>(smem_raw);  // `sets` x (Q, K, V (tp, ld) each)
+
+  const int h = blockIdx.y, run = blockIdx.x, runs = gridDim.x;  // windows run, run + runs, ...
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
+  const int r0 = warp * 16 + g;  // the lane's query rows r0 and r0 + 8
+  const float* bias_h = bias + static_cast<long long>(h) * t * t;
+  auto stage = [&](int set, int w) {
+    const long long at = (static_cast<long long>(w) * heads + h) * t * D;
+    bf16_t* dst = tiles + set * 3 * tile;
+    stage_tile<D>(dst, q + at, t, tp);
+    stage_tile<D>(dst + tile, k + at, t, tp);
+    stage_tile<D>(dst + 2 * tile, v + at, t, tp);
+  };
+
+  if (run < windows) stage(0, run);
+  cp_async_commit();
+  for (int w = run, nth = 0; w < windows; w += runs, ++nth) {
+    const int set = sets == 2 ? nth & 1 : 0;
+    if (sets == 2 && w + runs < windows) stage(set ^ 1, w + runs);
+    cp_async_commit();
+    cp_async_wait<1>();  // window w's copies are done
+    __syncthreads();
+    const bf16_t* sq = tiles + set * 3 * tile;
+    const bf16_t* sk = sq + tile;
+    const bf16_t* sv = sk + tile;
+    const int wi = w % n_img_windows;  // a mask that is all zero is not read
+    const float* mask_w = mask && mask_used[wi] ? mask + static_cast<long long>(wi) * t * t : nullptr;
+
+    uint32_t qa[D / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      ldmatrix_x4(qa[kk], sq + (warp * 16 + lane % 16) * ld + kk * 16 + (lane / 16) * 8);
+    float acc[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    // of rows r0 and r0 + 8: the running max (the same in the row's 4 lanes)
+    // and this lane's share of the running sum
+    float m[2] = {kNoScore, kNoScore}, l[2] = {0.f, 0.f};
+    float bm[2][4];
+    load_bias(bm, bias_h, mask_w, t, r0, tig, 0);
+    for (int c0 = 0; c0 < steps; c0 += KC) {
+      // scores of the pass's keys: S = Q K^T by mma, then scale, bias and mask
+      float s[KC][2][4];
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) {
+        const int ks = c0 + kk;
+        if (ks >= steps) break;
+        float bm_next[2][4] = {};  // the next step's, read while this one computes
+        if (ks + 1 < steps) load_bias(bm_next, bias_h, mask_w, t, r0, tig, ks + 1);
+#pragma unroll
+        for (int jt = 0; jt < 2; ++jt) s[kk][jt][0] = s[kk][jt][1] = s[kk][jt][2] = s[kk][jt][3] = 0.f;
+        mma_rows_t<D, 2>(s[kk], qa, sk + ks * 16 * ld, lane);
+        const bool ragged = ks * 16 + 16 > t;
+#pragma unroll
+        for (int jt = 0; jt < 2; ++jt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = fmaf(s[kk][jt][e], scale, bm[jt][e]);
+            if (ragged && ks * 16 + jt * 8 + 2 * tig + (e & 1) >= t) x = kNoScore;  // padded key
+            s[kk][jt][e] = x;
+            mx[e >> 1] = fmaxf(mx[e >> 1], x);
+            bm[jt][e] = bm_next[jt][e];
+          }
+      }
+      float mlog2[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {  // the row's new max over its quad; rescale the old sums
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        const float alpha = exp2_approx((m[hh] - mx[hh]) * kLog2e);  // 0 in the first pass
+        l[hh] *= alpha;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          acc[n][2 * hh] *= alpha;
+          acc[n][2 * hh + 1] *= alpha;
+        }
+        m[hh] = mx[hh];
+        mlog2[hh] = mx[hh] * kLog2e;
+      }
+      // P = e^(s - m) by ex2 (a padded key's is exactly 0); the sum takes P in
+      // f32, O += P V takes P rounded to bf16 (C fragments → A, mma.cuh)
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) {
+        const int ks = c0 + kk;
+        if (ks >= steps) break;
+        uint32_t pa[1][4];
+#pragma unroll
+        for (int jt = 0; jt < 2; ++jt) {
+          float p[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[e] = exp2_approx(fmaf(s[kk][jt][e], kLog2e, -mlog2[e >> 1]));
+          l[0] += p[0] + p[1];
+          l[1] += p[2] + p[3];
+          pa[0][jt * 2] = pack_bf16x2(p[0], p[1]);
+          pa[0][jt * 2 + 1] = pack_bf16x2(p[2], p[3]);
+        }
+        mma_rows<D, 1>(acc, pa, sv + ks * 16 * ld, lane);
+      }
+    }
+
+    const long long wh = static_cast<long long>(w) * heads + h;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {  // the row sums over the quad; O / l and lse
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+      const int row = r0 + 8 * hh;
+      if (row >= t) continue;  // a padded query writes nothing
+      const float inv = 1.f / l[hh];
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(o + (wh * t + row) * D + n * 8 + 2 * tig) =
+            pack_bf16x2(acc[n][2 * hh] * inv, acc[n][2 * hh + 1] * inv);
+      if (tig == 0) lse[wh * t + row] = m[hh] + logf(l[hh]);
+    }
+    if (w + runs < windows) {
+      __syncthreads();  // every warp is done with this window's tiles
+      if (sets == 1) {
+        stage(0, w + runs);
+        cp_async_commit();
+      }
+    }
   }
 }
 
@@ -340,36 +522,6 @@ window_attention_bwd_mma_kernel(const bf16_t* __restrict__ q, const bf16_t* __re
     for (int r = threadIdx.x; r < tp; r += blockDim.x)
       cp_async_4(sl + r, lse + wh * t + (r < t ? r : 0), r < t);
   };
-  // bias + mask of the lane's elements of 16-key step ks, in the C-fragment
-  // layout (2 n8 tiles); 0 for a padded query or key. Pairs of columns are
-  // read as float2 where T is even (then every pair is 8-byte aligned).
-  const bool pairs = t % 2 == 0;
-  auto load_bias = [&](float (&bm)[2][4], const float* mask_w, int ks) {
-#pragma unroll
-    for (int jt = 0; jt < 2; ++jt)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int i = r0 + 8 * hh, j = ks * 16 + jt * 8 + 2 * tig;
-        float2 x = make_float2(0.f, 0.f);
-        if (i < t && j < t) {
-          const int at = i * t + j;
-          if (pairs) {
-            x = *reinterpret_cast<const float2*>(bias_h + at);
-            if (mask_w) {
-              const float2 m = *reinterpret_cast<const float2*>(mask_w + at);
-              x.x += m.x;
-              x.y += m.y;
-            }
-          } else {
-            x.x = bias_h[at] + (mask_w ? mask_w[at] : 0.f);
-            if (j + 1 < t) x.y = bias_h[at + 1] + (mask_w ? mask_w[at + 1] : 0.f);
-          }
-        }
-        bm[jt][2 * hh] = x.x;
-        bm[jt][2 * hh + 1] = x.y;
-      }
-  };
-
   // this run's sum of dS in the C-fragment layout of the lane's rows: element
   // (n, e) is row r0 + 8 (e / 2), column 8 n + 2 tig + e % 2
   float acc_bias[2 * kMaxKeySteps][4];
@@ -424,12 +576,12 @@ window_attention_bwd_mma_kernel(const bf16_t* __restrict__ q, const bf16_t* __re
       for (int n = 0; n < D / 8; ++n) acc_dq[n][0] = acc_dq[n][1] = acc_dq[n][2] = acc_dq[n][3] = 0.f;
 
       float bm[2][4];
-      load_bias(bm, mask_w, 0);
+      load_bias(bm, bias_h, mask_w, t, r0, tig, 0);
 #pragma unroll
       for (int ks = 0; ks < kMaxKeySteps; ++ks) {  // 16 keys at a time
         if (ks >= steps) break;
         float bm_next[2][4] = {};  // the next step's, read while this one computes
-        if (ks + 1 < steps) load_bias(bm_next, mask_w, ks + 1);
+        if (ks + 1 < steps) load_bias(bm_next, bias_h, mask_w, t, r0, tig, ks + 1);
         float s[2][4] = {}, dp[2][4] = {};
         mma_rows_t<D, 2>(s, qa, sk + ks * 16 * ld, lane);
         mma_rows_t<D, 2>(dp, da, sv + ks * 16 * ld, lane);
@@ -545,18 +697,43 @@ __global__ void window_attention_dbias_reduce_kernel(const float* __restrict__ p
 
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, const void* bias, const void* mask,
-               void* o, void* lse, int windows, int heads, int t, int n_img_windows,
-               cudaStream_t stream) {
-  const size_t smem = (3 * static_cast<size_t>(t) * (D + 1) + kWarps * t) * sizeof(float);
-  if (smem > kSharedLimit) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = window_attention_fwd_kernel<T, D>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  const long long blocks = static_cast<long long>(windows) * heads;
-  if (blocks > 0) {
-    kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const float*>(bias), static_cast<const float*>(mask), static_cast<T*>(o),
-        static_cast<float*>(lse), heads, t, n_img_windows, sqrtf(static_cast<float>(D)));
+               const void* mask_used, void* o, void* lse, int windows, int heads, int t,
+               int n_img_windows, int runs, int key_steps, cudaStream_t stream) {
+  if (windows <= 0 || heads <= 0) return static_cast<int>(cudaGetLastError());
+  if constexpr (std::is_same<T, bf16_t>::value) {
+    const int tp = (t + 15) & ~15;
+    const int sets = runs < windows && fwd_mma_shared_bytes<D>(tp, 2) <= kSharedLimit ? 2 : 1;
+    const size_t smem = fwd_mma_shared_bytes<D>(tp, sets);
+    if (runs < 1 || runs > windows || smem > kSharedLimit || (mask != nullptr && mask_used == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    decltype(&window_attention_fwd_mma_kernel<D, 1, 512, 1>) kernel;
+    switch (key_steps) {
+      case 1: kernel = window_attention_fwd_mma_kernel<D, 1, 512, 1>; break;
+      case 2: kernel = window_attention_fwd_mma_kernel<D, 2, 288, 3>; break;
+      case 3: kernel = window_attention_fwd_mma_kernel<D, 3, 512, 1>; break;
+      case 9: kernel = window_attention_fwd_mma_kernel<D, 9, 512, 1>; break;
+      case 4: kernel = window_attention_fwd_mma_kernel<D, 1, 288, 4>; break;
+      case 5: kernel = window_attention_fwd_mma_kernel<D, 1, 288, 5>; break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    kernel<<<dim3(runs, heads), tp * 2, smem, stream>>>(
+        static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
+        static_cast<const bf16_t*>(v), static_cast<const float*>(bias),
+        static_cast<const float*>(mask), static_cast<const uint8_t*>(mask_used),
+        static_cast<bf16_t*>(o), static_cast<float*>(lse), windows, heads, t, n_img_windows,
+        sets, 1.f / sqrtf(static_cast<float>(D)));
+  } else {
+    const size_t smem = (3 * static_cast<size_t>(t) * (D + 1) + kWarps * t) * sizeof(float);
+    if (smem > kSharedLimit) return static_cast<int>(cudaErrorInvalidValue);
+    auto kernel = window_attention_fwd_kernel<D>;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    kernel<<<static_cast<unsigned>(static_cast<long long>(windows) * heads), kThreads, smem,
+             stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                       static_cast<const float*>(v), static_cast<const float*>(bias),
+                       static_cast<const float*>(mask), static_cast<float*>(o),
+                       static_cast<float*>(lse), heads, t, n_img_windows,
+                       sqrtf(static_cast<float>(D)));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -615,22 +792,27 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 // aligned) or f32; lse (windows, heads, tokens) f32; bias and dbias (heads,
 // tokens, tokens) f32; mask (n_img_windows, tokens, tokens) f32 or null, and
 // with it mask_used (n_img_windows) bytes, 0 where that window's mask is all
-// zero (the bf16 backward then skips it; the f32 backward ignores it); part
+// zero (the bf16 kernels then skip it; the f32 kernels ignore it); part
 // f32 scratch of runs * heads * tokens * tokens, the backward's dBias
-// partials, one for each of its `runs` runs of windows (1 <= runs <=
-// windows; run r takes windows r, r + runs, r + 2 runs, ...). The forward takes tokens <= 256, the backward
-// tokens <= 144; head_dim in {16, 32, 64}. Launch on `stream`; return
-// cudaGetLastError() (or cudaErrorInvalidValue for a shape the kernels do
-// not take).
+// partials. A bf16 block takes one head and a run of windows: run r of
+// `runs` (1 <= runs <= windows) takes windows r, r + runs, r + 2 runs, ...;
+// key_steps picks the bf16 forward's variant (16-key steps a softmax pass,
+// threads and blocks an SM of its launch bounds): 1 (1, 512, 1), 2 (2, 288,
+// 3), 3 (3, 512, 1), 4 (1, 288, 4), 5 (1, 288, 5), 9 (9, 512, 1); the f32
+// forward ignores both. The forward takes tokens
+// <= 256, the backward tokens <= 144; head_dim in {16, 32, 64}. Launch on
+// `stream`; return cudaGetLastError() (or cudaErrorInvalidValue for a shape
+// the kernels do not take).
 extern "C" int wis_window_attention_fwd(const void* q, const void* k, const void* v,
-                                        const void* bias, const void* mask, void* o, void* lse,
-                                        int windows, int heads, int tokens, int head_dim,
-                                        int n_img_windows, int bf16, void* stream) {
+                                        const void* bias, const void* mask,
+                                        const void* mask_used, void* o, void* lse, int windows,
+                                        int heads, int tokens, int head_dim, int n_img_windows,
+                                        int bf16, int runs, int key_steps, void* stream) {
   if (tokens < 1 || tokens > kMaxTokens || n_img_windows < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  WIS_DISPATCH(launch_fwd, q, k, v, bias, mask, o, lse, windows, heads, tokens, n_img_windows,
-               static_cast<cudaStream_t>(stream))
+  WIS_DISPATCH(launch_fwd, q, k, v, bias, mask, mask_used, o, lse, windows, heads, tokens,
+               n_img_windows, runs, key_steps, static_cast<cudaStream_t>(stream))
 }
 
 extern "C" int wis_window_attention_bwd(const void* q, const void* k, const void* v,

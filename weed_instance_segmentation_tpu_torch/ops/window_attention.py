@@ -98,26 +98,42 @@ def window_runs(windows: int, heads: int, sms: int) -> int:
     return max(1, min(windows, sms // heads))
 
 
+def forward_runs(windows: int, heads: int, sms: int) -> int:
+    """How many runs of windows the bf16 forward splits each head into: one
+    block for each (window, head)."""
+    return windows
+
+
+def forward_key_steps(tokens: int) -> int:
+    """The bf16 forward's 16-key steps a softmax pass: the running max is
+    taken, and the sums rescaled, once a pass."""
+    return 1
+
+
 class _WindowAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, rel_bias, attn_mask):
         nw, heads, tokens, head_dim = q.shape
         out = torch.empty_like(q)
         lse = torch.empty((nw, heads, tokens), dtype=torch.float32, device=q.device)
-        n_img = 1 if attn_mask is None else attn_mask.shape[0]
-        launch(entry_point(_LIBRARY, 'wis_window_attention_fwd', 7, 6), q.device,
+        n_img, mask_used = 1, None
+        if attn_mask is not None:  # which windows' masks hold a nonzero entry
+            n_img, mask_used = attn_mask.shape[0], attn_mask.flatten(1).any(1).view(torch.uint8)
+        launch(entry_point(_LIBRARY, 'wis_window_attention_fwd', 8, 8), q.device,
                f'window attention forward for q {tuple(q.shape)}',
                q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_bias.data_ptr(),
-               None if attn_mask is None else attn_mask.data_ptr(), out.data_ptr(),
-               lse.data_ptr(), nw, heads, tokens, head_dim, n_img, int(q.dtype == torch.bfloat16))
+               None if attn_mask is None else attn_mask.data_ptr(),
+               None if mask_used is None else mask_used.data_ptr(), out.data_ptr(),
+               lse.data_ptr(), nw, heads, tokens, head_dim, n_img, int(q.dtype == torch.bfloat16),
+               forward_runs(nw, heads, sm_count(q.device.index)), forward_key_steps(tokens))
         window_attention.launches += 1
-        ctx.save_for_backward(q, k, v, out, lse, rel_bias, attn_mask)
+        ctx.save_for_backward(q, k, v, out, lse, rel_bias, attn_mask, mask_used)
         ctx.mark_non_differentiable(lse)
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        q, k, v, out, lse, rel_bias, attn_mask = ctx.saved_tensors
+        q, k, v, out, lse, rel_bias, attn_mask, mask_used = ctx.saved_tensors
         grad_out = grad_out.to(q.dtype).contiguous()
         if grad_out.data_ptr() % 16:
             grad_out = grad_out.clone()
@@ -126,9 +142,7 @@ class _WindowAttention(torch.autograd.Function):
         dbias = torch.empty((heads, tokens, tokens), dtype=torch.float32, device=q.device)
         runs = window_runs(nw, heads, sm_count(q.device.index))
         part = torch.empty((runs, heads, tokens, tokens), dtype=torch.float32, device=q.device)
-        n_img, mask_used = 1, None
-        if attn_mask is not None:  # which windows' masks hold a nonzero entry
-            n_img, mask_used = attn_mask.shape[0], attn_mask.flatten(1).any(1).byte()
+        n_img = 1 if attn_mask is None else attn_mask.shape[0]
         launch(entry_point(_LIBRARY, 'wis_window_attention_bwd', 14, 7), q.device,
                f'window attention backward for q {tuple(q.shape)}',
                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
