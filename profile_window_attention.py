@@ -2,17 +2,13 @@
 NVIDIA GPU, at Swin-L's shapes (window 12: T 144, D 32; stage 1 H 6 and
 stage 3 H 24), with and without the shift mask:
 
-    python3 profile_window_attention.py [--runs 44 66] [--fwd-key-steps 1 2]
-                                        [--fwd-blocks-per-sm 3]
+    python3 profile_window_attention.py [--runs 44 66]
 
-Each line is one (stage, mask, variant) and gives the device µs per call of
+Each line is one (stage, mask, pass) and gives the device µs per call of
 each kernel, copy or fill by name over 20 calls in a ``torch.profiler``
 trace. The forward runs at training batch 2 (NW 578 and 50) and at the
-serving batch 4 (NW 1156 and 100), with the wrapper's own choices and, for
-each ``--fwd-key-steps`` count, with that many 16-key steps a softmax pass,
-and for each ``--fwd-blocks-per-sm`` count, with one block a head and run
-of windows, that many blocks an SM. The backward runs at batch 2, with the
-runs of windows as the wrapper picks them and at each ``--runs`` count.
+serving batch 4 (NW 1156 and 100); the backward at batch 2, with the runs
+of windows as the wrapper picks them and at each ``--runs`` count.
 """
 
 from __future__ import annotations
@@ -41,32 +37,12 @@ def _split_line(split) -> str:
     return '; '.join(f'{kernel_name(key)} {1e3 * ms:.1f} µs' for key, ms in split.most_common())
 
 
-def _patched(name: str, value):
-    """Set ``ops.<name>`` to a function that returns ``value`` (or leave it
-    for None); return the function to restore."""
-    old = getattr(ops, name)
-    if value is not None:
-        setattr(ops, name, lambda *_: value)
-    return old
-
-
-def profile_forward(stage: str, shifted: bool, key_steps: int | None,
-                    blocks_per_sm: int | None) -> str:
+def profile_forward(stage: str, shifted: bool) -> str:
     q, k, v, bias, mask = _inputs(stage, shifted)
-    nw, heads = q.shape[:2]
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    runs = max(1, min(nw, blocks_per_sm * sms // heads)) if blocks_per_sm else None
-    old = {name: _patched(name, value) for name, value in (('forward_key_steps', key_steps),
-                                                            ('forward_runs', runs))}
-    try:
-        used = ops.forward_key_steps(q.shape[2]), ops.forward_runs(nw, heads, sms)
-        with torch.no_grad():
-            split = device_split(lambda: ops.window_attention(q, k, v, bias, mask), RUNS)
-    finally:
-        for name, fn in old.items():
-            setattr(ops, name, fn)
-    return (f'{stage} NW={nw} H={heads} {"shifted" if shifted else "unshifted"} fwd '
-            f'key_steps={used[0]} runs={used[1]}: {_split_line(split)}')
+    with torch.no_grad():
+        split = device_split(lambda: ops.window_attention(q, k, v, bias, mask), RUNS)
+    return (f'{stage} NW={q.shape[0]} H={q.shape[1]} {"shifted" if shifted else "unshifted"} '
+            f'fwd: {_split_line(split)}')
 
 
 def profile_backward(stage: str, shifted: bool, runs: int | None) -> str:
@@ -74,7 +50,9 @@ def profile_backward(stage: str, shifted: bool, runs: int | None) -> str:
     nw, heads = q.shape[:2]
     if runs and runs > nw:
         return f'{stage}: runs={runs} is more than its {nw} windows; skipped'
-    pick = _patched('window_runs', runs)
+    pick = ops.window_runs
+    if runs:
+        ops.window_runs = lambda *_: runs
     try:
         out = ops.window_attention(q, k, v, bias, mask)
         cot = torch.randn_like(out)
@@ -92,21 +70,14 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--runs', type=int, nargs='*', default=[],
                         help='backward run counts to try besides the wrapper\'s own')
-    parser.add_argument('--fwd-key-steps', type=int, nargs='*', default=[],
-                        help='forward 16-key steps a softmax pass to try besides the wrapper\'s')
-    parser.add_argument('--fwd-blocks-per-sm', type=int, nargs='*', default=[],
-                        help='forward blocks an SM, each a head and a run of windows, to try')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('profile_window_attention: needs an NVIDIA GPU', file=sys.stderr)
         return 1
     print(torch.cuda.get_device_name(0))
-    variants = [(ks, b) for ks in [None, *args.fwd_key_steps]
-                for b in [None, *args.fwd_blocks_per_sm]]
     for stage in {**WINDOW_STAGES, **SERVING_WINDOW_STAGES}:
         for shifted in (True, False):
-            for key_steps, blocks in variants:
-                print(profile_forward(stage, shifted, key_steps, blocks), flush=True)
+            print(profile_forward(stage, shifted), flush=True)
             if stage in WINDOW_STAGES:
                 for runs in [None, *args.runs]:
                     print(profile_backward(stage, shifted, runs), flush=True)

@@ -11,17 +11,47 @@
 // dS = P * (dO V^T - Delta), they give dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D),
 // dV = P^T dO and dBias[h] = the sum over windows of dS, in f32.
 //
-// What bounds it: memory. At Swin-L stage 1 (T = 144, D = 32) the forward does
-// 4*T*D flops per score pair against 4*T*D*2 bytes (bf16) per window-head of
-// q/k/v/o, so about 36 flops per byte, far below the ~295 at which the H100's
-// tensor cores, not HBM, would be the limit.
-// - forward (bf16 and f32): on CUDA cores in f32, one block per (window,
-//   head); Q, K and V are staged in shared memory as f32 (row stride D + 1, so
-//   a warp reading K by rows hits 32 banks); a warp per query row, with that
-//   row in registers, forms the T scores (lane j takes keys j, j + 32, ...),
-//   adds rel_bias[h] and the mask, takes a warp-reduced softmax and writes
-//   O[i, :] with one lane per channel. It stores the per-row log-sum-exp for
-//   the backward.
+// What bounds it: memory, in principle. At Swin-L stage 1 (T = 144, D = 32)
+// the forward does 4*T*D flops per score pair against 4*T*D*2 bytes (bf16)
+// per window-head of q/k/v/o, so about 36 flops per byte, far below the ~295
+// at which the H100's tensor cores, not HBM, would be the limit.
+// - forward, bf16: on tensor cores (mma.sync m16n8k16, bf16 in, f32
+//   accumulate; csrc/mma.cuh). One block of T/16 warps (T padded to a
+//   multiple of 16: 9 warps at T = 144) per (window, head), consecutive
+//   blocks taking one head's windows, so the blocks an SM holds at once read
+//   the same bias lines. Q, K and V are copied into shared memory as bf16 by
+//   cp.async, rows padded by 16 bytes for ldmatrix, padded rows zero; the
+//   first key step's bias is read while they are in flight. Each warp takes
+//   16 queries (Q as A fragments) and walks the keys 16 at a time: S = Q K^T
+//   by mma, then the scale, bias and mask in f32 in the C-fragment layout
+//   (the next step's bias and mask are read while this step computes; a
+//   window whose mask is all zero, as Swin's interior windows' are, reads no
+//   mask), an online softmax (the row max over the quad, the sums rescaled by
+//   e^(m_old - m_new)), P = e^(s - m) by ex2, and O += P V with P's
+//   accumulator fragments packed to bf16 as the A operand and V read by
+//   ldmatrix.trans. P is rounded to bf16 before PV, as the Pallas kernel
+//   rounds it; the row sum adds the unrounded P; every sum is f32. O / l is
+//   rounded to bf16 once, and the row's log-sum-exp m + ln l is stored for
+//   the backward. A padded key scores -1e30 (never -inf), so its P is
+//   exactly 0; a padded query writes nothing. Up to T = 144 and D = 32 a
+//   thread holds at most 72 registers (68 at D = 32), so 3 blocks (27 warps)
+//   share an SM.
+//   What bounds it now: neither bytes (2.6x the byte bound at Swin-L stage 1
+//   b2, 4x at stage 3) nor tensor-core operations, but each block's latency
+//   (about 13 us on an H100: staging, then 9 key steps of bias loads, mma,
+//   softmax and mma) at 3 blocks an SM; at stage 3 its 1200 blocks make
+//   3.03 waves of 396. The shift mask adds about 10 us a call at either
+//   stage. Occupancy set its time: holding the whole row of 144 scores in
+//   registers (one softmax pass), or 32 or 48 keys a pass, took more
+//   registers and fewer blocks an SM and measured slower, as did blocks
+//   that walk a run of windows with double-buffered tiles.
+// - forward, f32: on CUDA cores in f32, kept for the f32 parity checks. One
+//   block per (window, head); Q, K and V are staged in shared memory as f32
+//   (row stride D + 1, so a warp reading K by rows hits 32 banks); a warp
+//   per query row, with that row in registers, forms the T scores (lane j
+//   takes keys j, j + 32, ...), adds rel_bias[h] and the mask, takes a
+//   warp-reduced softmax and writes O[i, :] with one lane per channel. It
+//   stores the per-row log-sum-exp for the backward.
 // - backward, bf16: on tensor cores (mma.sync m16n8k16, bf16 in, f32
 //   accumulate; csrc/mma.cuh), T <= 144. A block of T/16 warps (T padded to
 //   a multiple of 16: 9 warps at T = 144) takes one head and a run of
@@ -64,9 +94,8 @@
 //   (recomputing that column of P and dS), so no two threads add into one
 //   output. dS goes into the block's dBias partial in device memory, each
 //   element owned by one thread, and the same second launch sums the runs.
-// Left for later: wgmma and TMA for the backward, more warps an SM (the
-// mask-heavy runs of Swin-L stage 3 set its time), and the forward on tensor
-// cores.
+// Left for later: wgmma and TMA, and more warps an SM (for the backward, the
+// mask-heavy runs of Swin-L stage 3 set its time).
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -81,6 +110,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBwdThreads = 512;  // the f32 backward: 16 warps
 constexpr int kBwdWarps = kBwdThreads / 32;
 constexpr int kMaxTokens = 256;     // the forward
+constexpr int kFwdFewWarps = 9;     // the bf16 forward's instantiation for T <= 144
 constexpr int kBwdMaxTokens = 144;  // the backward: the bf16 dBias accumulator's registers
 constexpr int kKeysPerLane = kMaxTokens / 32;
 constexpr int kMaxKeySteps = kBwdMaxTokens / 16;  // 16-key steps of the bf16 backward
@@ -324,150 +354,112 @@ __device__ __forceinline__ void load_bias(float (&bm)[2][4], const float* __rest
     }
 }
 
-// bytes of shared memory of a bf16 forward block: `sets` sets of Q, K and V
-// tiles (tp, D + 8)
-template <int D>
-size_t fwd_mma_shared_bytes(int tp, int sets) {
-  return static_cast<size_t>(sets) * 3 * tp * (D + 8) * sizeof(bf16_t);
-}
-
-// KC: the 16-key steps of one softmax pass (the running max is taken, and
-// the sums rescaled, once a pass); KC >= T / 16 is one pass over the row
-template <int D, int KC, int kMaxThreads, int kMinBlocks>
-__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+// T/16 warps a block, at most kMaxWarps; with up to 9 warps (T <= 144) and
+// D <= 32 a thread holds at most 72 registers, so 3 blocks share an SM
+template <int D, int kMaxWarps>
+__global__ void __launch_bounds__(kMaxWarps * 32, (kMaxWarps <= kFwdFewWarps && D <= 32 ? 3 : 1))
 window_attention_fwd_mma_kernel(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
                                 const bf16_t* __restrict__ v, const float* __restrict__ bias,
                                 const float* __restrict__ mask,
                                 const uint8_t* __restrict__ mask_used, bf16_t* __restrict__ o,
-                                float* __restrict__ lse, int windows, int heads, int t,
-                                int n_img_windows, int sets, float scale) {
+                                float* __restrict__ lse, int heads, int t, int n_img_windows,
+                                float scale) {
   constexpr int ld = D + 8;
   const int tp = (t + 15) & ~15;  // tokens padded to whole 16-row tiles: one warp each
   const int steps = tp / 16;
-  const int tile = tp * ld;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16_t* tiles = reinterpret_cast<bf16_t*>(smem_raw);  // `sets` x (Q, K, V (tp, ld) each)
+  bf16_t* sq = reinterpret_cast<bf16_t*>(smem_raw);  // Q, K and V (tp, ld) each
+  bf16_t* sk = sq + tp * ld;
+  bf16_t* sv = sk + tp * ld;
 
-  const int h = blockIdx.y, run = blockIdx.x, runs = gridDim.x;  // windows run, run + runs, ...
+  const int w = blockIdx.x, h = blockIdx.y;  // consecutive blocks: one head's windows
+  const long long wh = static_cast<long long>(w) * heads + h;
+  stage_tile<D>(sq, q + wh * t * D, t, tp);
+  stage_tile<D>(sk, k + wh * t * D, t, tp);
+  stage_tile<D>(sv, v + wh * t * D, t, tp);
+  cp_async_commit();
+
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
   const int r0 = warp * 16 + g;  // the lane's query rows r0 and r0 + 8
   const float* bias_h = bias + static_cast<long long>(h) * t * t;
-  auto stage = [&](int set, int w) {
-    const long long at = (static_cast<long long>(w) * heads + h) * t * D;
-    bf16_t* dst = tiles + set * 3 * tile;
-    stage_tile<D>(dst, q + at, t, tp);
-    stage_tile<D>(dst + tile, k + at, t, tp);
-    stage_tile<D>(dst + 2 * tile, v + at, t, tp);
-  };
+  const int wi = w % n_img_windows;  // a mask that is all zero is not read
+  const float* mask_w = mask && mask_used[wi] ? mask + static_cast<long long>(wi) * t * t : nullptr;
+  float bm[2][4];
+  load_bias(bm, bias_h, mask_w, t, r0, tig, 0);  // while the tiles are in flight
+  cp_async_wait<0>();
+  __syncthreads();
 
-  if (run < windows) stage(0, run);
-  cp_async_commit();
-  for (int w = run, nth = 0; w < windows; w += runs, ++nth) {
-    const int set = sets == 2 ? nth & 1 : 0;
-    if (sets == 2 && w + runs < windows) stage(set ^ 1, w + runs);
-    cp_async_commit();
-    cp_async_wait<1>();  // window w's copies are done
-    __syncthreads();
-    const bf16_t* sq = tiles + set * 3 * tile;
-    const bf16_t* sk = sq + tile;
-    const bf16_t* sv = sk + tile;
-    const int wi = w % n_img_windows;  // a mask that is all zero is not read
-    const float* mask_w = mask && mask_used[wi] ? mask + static_cast<long long>(wi) * t * t : nullptr;
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldmatrix_x4(qa[kk], sq + (warp * 16 + lane % 16) * ld + kk * 16 + (lane / 16) * 8);
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  // of rows r0 and r0 + 8: the running max (the same in the row's 4 lanes)
+  // and this lane's share of the running sum
+  float m[2] = {kNoScore, kNoScore}, l[2] = {0.f, 0.f};
+  for (int ks = 0; ks < steps; ++ks) {  // 16 keys at a time
+    float bm_next[2][4] = {};  // the next step's, read while this one computes
+    if (ks + 1 < steps) load_bias(bm_next, bias_h, mask_w, t, r0, tig, ks + 1);
+    // S = Q K^T by mma, then the scale, bias and mask in f32
+    float s[2][4] = {};
+    mma_rows_t<D, 2>(s, qa, sk + ks * 16 * ld, lane);
+    const bool ragged = ks * 16 + 16 > t;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int jt = 0; jt < 2; ++jt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = fmaf(s[jt][e], scale, bm[jt][e]);
+        if (ragged && ks * 16 + jt * 8 + 2 * tig + (e & 1) >= t) x = kNoScore;  // padded key
+        s[jt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        bm[jt][e] = bm_next[jt][e];
+      }
+    float mlog2[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {  // the row's new max over its quad; rescale the old sums
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float alpha = exp2_approx((m[hh] - mx[hh]) * kLog2e);  // 0 at the first step
+      l[hh] *= alpha;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][2 * hh] *= alpha;
+        acc[n][2 * hh + 1] *= alpha;
+      }
+      m[hh] = mx[hh];
+      mlog2[hh] = mx[hh] * kLog2e;
+    }
+    // P = e^(s - m) by ex2 (a padded key's is exactly 0); the sum takes P in
+    // f32, O += P V takes P rounded to bf16 (C fragments → A, mma.cuh)
+    uint32_t pa[1][4];
+#pragma unroll
+    for (int jt = 0; jt < 2; ++jt) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[e] = exp2_approx(fmaf(s[jt][e], kLog2e, -mlog2[e >> 1]));
+      l[0] += p[0] + p[1];
+      l[1] += p[2] + p[3];
+      pa[0][jt * 2] = pack_bf16x2(p[0], p[1]);
+      pa[0][jt * 2 + 1] = pack_bf16x2(p[2], p[3]);
+    }
+    mma_rows<D, 1>(acc, pa, sv + ks * 16 * ld, lane);
+  }
 
-    uint32_t qa[D / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      ldmatrix_x4(qa[kk], sq + (warp * 16 + lane % 16) * ld + kk * 16 + (lane / 16) * 8);
-    float acc[D / 8][4];
+  for (int hh = 0; hh < 2; ++hh) {  // the row sums over the quad; O / l and lse
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    const int row = r0 + 8 * hh;
+    if (row >= t) continue;  // a padded query writes nothing
+    const float inv = 1.f / l[hh];
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-    // of rows r0 and r0 + 8: the running max (the same in the row's 4 lanes)
-    // and this lane's share of the running sum
-    float m[2] = {kNoScore, kNoScore}, l[2] = {0.f, 0.f};
-    float bm[2][4];
-    load_bias(bm, bias_h, mask_w, t, r0, tig, 0);
-    for (int c0 = 0; c0 < steps; c0 += KC) {
-      // scores of the pass's keys: S = Q K^T by mma, then scale, bias and mask
-      float s[KC][2][4];
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        const int ks = c0 + kk;
-        if (ks >= steps) break;
-        float bm_next[2][4] = {};  // the next step's, read while this one computes
-        if (ks + 1 < steps) load_bias(bm_next, bias_h, mask_w, t, r0, tig, ks + 1);
-#pragma unroll
-        for (int jt = 0; jt < 2; ++jt) s[kk][jt][0] = s[kk][jt][1] = s[kk][jt][2] = s[kk][jt][3] = 0.f;
-        mma_rows_t<D, 2>(s[kk], qa, sk + ks * 16 * ld, lane);
-        const bool ragged = ks * 16 + 16 > t;
-#pragma unroll
-        for (int jt = 0; jt < 2; ++jt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            float x = fmaf(s[kk][jt][e], scale, bm[jt][e]);
-            if (ragged && ks * 16 + jt * 8 + 2 * tig + (e & 1) >= t) x = kNoScore;  // padded key
-            s[kk][jt][e] = x;
-            mx[e >> 1] = fmaxf(mx[e >> 1], x);
-            bm[jt][e] = bm_next[jt][e];
-          }
-      }
-      float mlog2[2];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {  // the row's new max over its quad; rescale the old sums
-        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-        const float alpha = exp2_approx((m[hh] - mx[hh]) * kLog2e);  // 0 in the first pass
-        l[hh] *= alpha;
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          acc[n][2 * hh] *= alpha;
-          acc[n][2 * hh + 1] *= alpha;
-        }
-        m[hh] = mx[hh];
-        mlog2[hh] = mx[hh] * kLog2e;
-      }
-      // P = e^(s - m) by ex2 (a padded key's is exactly 0); the sum takes P in
-      // f32, O += P V takes P rounded to bf16 (C fragments → A, mma.cuh)
-#pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        const int ks = c0 + kk;
-        if (ks >= steps) break;
-        uint32_t pa[1][4];
-#pragma unroll
-        for (int jt = 0; jt < 2; ++jt) {
-          float p[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) p[e] = exp2_approx(fmaf(s[kk][jt][e], kLog2e, -mlog2[e >> 1]));
-          l[0] += p[0] + p[1];
-          l[1] += p[2] + p[3];
-          pa[0][jt * 2] = pack_bf16x2(p[0], p[1]);
-          pa[0][jt * 2 + 1] = pack_bf16x2(p[2], p[3]);
-        }
-        mma_rows<D, 1>(acc, pa, sv + ks * 16 * ld, lane);
-      }
-    }
-
-    const long long wh = static_cast<long long>(w) * heads + h;
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {  // the row sums over the quad; O / l and lse
-      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
-      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
-      const int row = r0 + 8 * hh;
-      if (row >= t) continue;  // a padded query writes nothing
-      const float inv = 1.f / l[hh];
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<uint32_t*>(o + (wh * t + row) * D + n * 8 + 2 * tig) =
-            pack_bf16x2(acc[n][2 * hh] * inv, acc[n][2 * hh + 1] * inv);
-      if (tig == 0) lse[wh * t + row] = m[hh] + logf(l[hh]);
-    }
-    if (w + runs < windows) {
-      __syncthreads();  // every warp is done with this window's tiles
-      if (sets == 1) {
-        stage(0, w + runs);
-        cp_async_commit();
-      }
-    }
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(o + (wh * t + row) * D + n * 8 + 2 * tig) =
+          pack_bf16x2(acc[n][2 * hh] * inv, acc[n][2 * hh + 1] * inv);
+    if (tig == 0) lse[wh * t + row] = m[hh] + logf(l[hh]);
   }
 }
 
@@ -698,31 +690,22 @@ __global__ void window_attention_dbias_reduce_kernel(const float* __restrict__ p
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, const void* bias, const void* mask,
                const void* mask_used, void* o, void* lse, int windows, int heads, int t,
-               int n_img_windows, int runs, int key_steps, cudaStream_t stream) {
+               int n_img_windows, cudaStream_t stream) {
   if (windows <= 0 || heads <= 0) return static_cast<int>(cudaGetLastError());
   if constexpr (std::is_same<T, bf16_t>::value) {
     const int tp = (t + 15) & ~15;
-    const int sets = runs < windows && fwd_mma_shared_bytes<D>(tp, 2) <= kSharedLimit ? 2 : 1;
-    const size_t smem = fwd_mma_shared_bytes<D>(tp, sets);
-    if (runs < 1 || runs > windows || smem > kSharedLimit || (mask != nullptr && mask_used == nullptr))
+    const size_t smem = 3 * static_cast<size_t>(tp) * (D + 8) * sizeof(bf16_t);
+    if (heads > 65535 || (mask != nullptr && mask_used == nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
-    decltype(&window_attention_fwd_mma_kernel<D, 1, 512, 1>) kernel;
-    switch (key_steps) {
-      case 1: kernel = window_attention_fwd_mma_kernel<D, 1, 512, 1>; break;
-      case 2: kernel = window_attention_fwd_mma_kernel<D, 2, 288, 3>; break;
-      case 3: kernel = window_attention_fwd_mma_kernel<D, 3, 512, 1>; break;
-      case 9: kernel = window_attention_fwd_mma_kernel<D, 9, 512, 1>; break;
-      case 4: kernel = window_attention_fwd_mma_kernel<D, 1, 288, 4>; break;
-      case 5: kernel = window_attention_fwd_mma_kernel<D, 1, 288, 5>; break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    auto kernel = tp <= 16 * kFwdFewWarps ? window_attention_fwd_mma_kernel<D, kFwdFewWarps>
+                                          : window_attention_fwd_mma_kernel<D, kMaxTokens / 16>;
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    kernel<<<dim3(runs, heads), tp * 2, smem, stream>>>(
+    kernel<<<dim3(windows, heads), tp * 2, smem, stream>>>(
         static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
         static_cast<const bf16_t*>(v), static_cast<const float*>(bias),
         static_cast<const float*>(mask), static_cast<const uint8_t*>(mask_used),
-        static_cast<bf16_t*>(o), static_cast<float*>(lse), windows, heads, t, n_img_windows,
-        sets, 1.f / sqrtf(static_cast<float>(D)));
+        static_cast<bf16_t*>(o), static_cast<float*>(lse), heads, t, n_img_windows,
+        1.f / sqrtf(static_cast<float>(D)));
   } else {
     const size_t smem = (3 * static_cast<size_t>(t) * (D + 1) + kWarps * t) * sizeof(float);
     if (smem > kSharedLimit) return static_cast<int>(cudaErrorInvalidValue);
@@ -794,25 +777,21 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 // with it mask_used (n_img_windows) bytes, 0 where that window's mask is all
 // zero (the bf16 kernels then skip it; the f32 kernels ignore it); part
 // f32 scratch of runs * heads * tokens * tokens, the backward's dBias
-// partials. A bf16 block takes one head and a run of windows: run r of
-// `runs` (1 <= runs <= windows) takes windows r, r + runs, r + 2 runs, ...;
-// key_steps picks the bf16 forward's variant (16-key steps a softmax pass,
-// threads and blocks an SM of its launch bounds): 1 (1, 512, 1), 2 (2, 288,
-// 3), 3 (3, 512, 1), 4 (1, 288, 4), 5 (1, 288, 5), 9 (9, 512, 1); the f32
-// forward ignores both. The forward takes tokens
-// <= 256, the backward tokens <= 144; head_dim in {16, 32, 64}. Launch on
-// `stream`; return cudaGetLastError() (or cudaErrorInvalidValue for a shape
-// the kernels do not take).
+// partials, one for each of its `runs` runs of windows (1 <= runs <=
+// windows; run r takes windows r, r + runs, r + 2 runs, ...). The forward
+// takes tokens <= 256, the backward tokens <= 144; head_dim in {16, 32, 64}.
+// Launch on `stream`; return cudaGetLastError() (or cudaErrorInvalidValue for
+// a shape the kernels do not take).
 extern "C" int wis_window_attention_fwd(const void* q, const void* k, const void* v,
                                         const void* bias, const void* mask,
                                         const void* mask_used, void* o, void* lse, int windows,
                                         int heads, int tokens, int head_dim, int n_img_windows,
-                                        int bf16, int runs, int key_steps, void* stream) {
+                                        int bf16, void* stream) {
   if (tokens < 1 || tokens > kMaxTokens || n_img_windows < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   WIS_DISPATCH(launch_fwd, q, k, v, bias, mask, mask_used, o, lse, windows, heads, tokens,
-               n_img_windows, runs, key_steps, static_cast<cudaStream_t>(stream))
+               n_img_windows, static_cast<cudaStream_t>(stream))
 }
 
 extern "C" int wis_window_attention_bwd(const void* q, const void* k, const void* v,

@@ -13,11 +13,14 @@ image ``w // nW_img`` and takes mask ``w % nW_img``.
 A CUDA tensor goes to ``csrc/window_attention.cu`` through a
 ``torch.autograd.Function`` whose backward is the hand-written backward
 kernel (dQ, dK, dV, and dBias summed over windows); a CPU tensor goes to
-:func:`window_attention_plain` under autograd. In bfloat16 the backward runs
-on tensor cores. Each block of the backward takes one head and a run of
-windows (:func:`window_runs`) and writes its dBias partial to a float32
-scratch that a second launch sums in run order, so dBias has the same bits
-on every call. The forward takes T ≤ ``MAX_TOKENS``, the backward T ≤
+:func:`window_attention_plain` under autograd. In bfloat16 the forward and
+the backward run on tensor cores, and float32 on CUDA cores. The forward
+takes one block per (window, head). It flags, once, which image windows'
+shift masks hold a nonzero entry (a window with an all-zero mask reads
+none), and saves the flags for the backward. Each block of the backward
+takes one head and a run of windows (:func:`window_runs`) and writes its
+dBias partial to a float32 scratch that a second launch sums in run order,
+so dBias has the same bits on every call. The forward takes T ≤ ``MAX_TOKENS``, the backward T ≤
 ``BACKWARD_MAX_TOKENS``. There is no fallback: on a CUDA tensor the wrapper
 launches the kernels or raises. Each forward call adds one to
 ``window_attention.launches``, each backward call to
@@ -98,18 +101,6 @@ def window_runs(windows: int, heads: int, sms: int) -> int:
     return max(1, min(windows, sms // heads))
 
 
-def forward_runs(windows: int, heads: int, sms: int) -> int:
-    """How many runs of windows the bf16 forward splits each head into: one
-    block for each (window, head)."""
-    return windows
-
-
-def forward_key_steps(tokens: int) -> int:
-    """The bf16 forward's 16-key steps a softmax pass: the running max is
-    taken, and the sums rescaled, once a pass."""
-    return 1
-
-
 class _WindowAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, rel_bias, attn_mask):
@@ -119,13 +110,12 @@ class _WindowAttention(torch.autograd.Function):
         n_img, mask_used = 1, None
         if attn_mask is not None:  # which windows' masks hold a nonzero entry
             n_img, mask_used = attn_mask.shape[0], attn_mask.flatten(1).any(1).view(torch.uint8)
-        launch(entry_point(_LIBRARY, 'wis_window_attention_fwd', 8, 8), q.device,
+        launch(entry_point(_LIBRARY, 'wis_window_attention_fwd', 8, 6), q.device,
                f'window attention forward for q {tuple(q.shape)}',
                q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_bias.data_ptr(),
                None if attn_mask is None else attn_mask.data_ptr(),
                None if mask_used is None else mask_used.data_ptr(), out.data_ptr(),
-               lse.data_ptr(), nw, heads, tokens, head_dim, n_img, int(q.dtype == torch.bfloat16),
-               forward_runs(nw, heads, sm_count(q.device.index)), forward_key_steps(tokens))
+               lse.data_ptr(), nw, heads, tokens, head_dim, n_img, int(q.dtype == torch.bfloat16))
         window_attention.launches += 1
         ctx.save_for_backward(q, k, v, out, lse, rel_bias, attn_mask, mask_used)
         ctx.mark_non_differentiable(lse)
