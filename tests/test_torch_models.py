@@ -16,6 +16,7 @@ import jax.numpy as jnp
 
 from weed_instance_segmentation_tpu.engine.model_utils import init_params
 from weed_instance_segmentation_tpu.models import configuration as jax_configuration
+from weed_instance_segmentation_tpu.models import pixel_decoder as jax_pixel_decoder
 from weed_instance_segmentation_tpu.models.mask2former import Mask2Former as JaxMask2Former
 from weed_instance_segmentation_tpu.models.pixel_decoder import PixelDecoder as JaxPixelDecoder
 from weed_instance_segmentation_tpu.models.swin import SwinBackbone as JaxSwinBackbone
@@ -32,6 +33,7 @@ from weed_instance_segmentation_tpu_torch.models.configuration import (
     Mask2FormerConfig, SwinConfig,
 )
 from weed_instance_segmentation_tpu_torch.models.convert import params_from_jax
+from weed_instance_segmentation_tpu_torch.models import pixel_decoder
 from weed_instance_segmentation_tpu_torch.models.mask2former import Mask2Former
 from weed_instance_segmentation_tpu_torch.models.swin import SwinBackbone
 from weed_instance_segmentation_tpu_torch.ops.deformable_attention import msda
@@ -189,3 +191,70 @@ def test_full_forward_matches_jax(tiny):
     for g, w in pairs:
         assert g.shape == w.shape
         np.testing.assert_allclose(_np(g), np.asarray(w), atol=5e-4)
+
+
+@pytest.mark.parametrize('route', ['bf16-params', 'autocast'])
+def test_msda_inputs_match_jax_at_bf16(monkeypatch, route):
+    """One encoder layer's deformable attention at bf16 in both stacks, with
+    the same weights: the values, sampling locations and attention weights
+    each stack hands to its MSDA, and the MSDA's output, agree bit for bit.
+    Both form the softmax and the locations in the compute dtype (a location
+    on the 64-wide level moves by up to a quarter pixel when rounded), and
+    both MSDA cores round each tap weight to bf16 and sum in bf16. The three
+    projections are fed the JAX package's outputs: a flax ``Dense`` rounds
+    its product before adding the bias, a torch ``Linear`` once after, so
+    they differ by a bf16 ulp, which is not what this test is about.
+    ``bf16-params`` is the serving route (bf16 weights), ``autocast`` the
+    training route (float32 weights under bf16 autocast)."""
+    config = Mask2FormerConfig.tiny_test(num_labels=3)
+    jax_layer = jax_pixel_decoder.EncoderLayer(
+        jax_configuration.Mask2FormerConfig.tiny_test(num_labels=3), dtype=jnp.bfloat16)
+    shapes = ((2, 16), (4, 32), (8, 64))
+    rng = np.random.default_rng(9)
+    seq = sum(h * w for h, w in shapes)
+    bf16 = lambda a: np.array(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))  # noqa: E731
+    hidden = bf16(rng.standard_normal((2, seq, config.feature_size)))
+    pos = bf16(rng.standard_normal((1, seq, config.feature_size)))
+    ref = jax_pixel_decoder.reference_points_constant(shapes)
+    params = _noisy(jax_layer.init(jax.random.PRNGKey(0), hidden, pos, ref, shapes)['params'],
+                    seed=10, scale=0.05)
+
+    recorded = {}
+
+    def spy(stack, msda_fn):
+        def call(value, spatial_shapes, locations, weights):
+            out = msda_fn(value, spatial_shapes, locations, weights)
+            recorded[stack] = [np.asarray(t.astype(jnp.float32)) if stack == 'jax'
+                               else _np(t.float()) for t in (value, locations, weights, out)]
+            recorded[stack + '_dtypes'] = (locations.dtype, weights.dtype)
+            return out
+        return call
+
+    monkeypatch.setattr(jax_pixel_decoder, 'msda', spy('jax', jax_pixel_decoder.msda))
+    monkeypatch.setattr(pixel_decoder, 'msda', spy('port', pixel_decoder.msda))
+    as_bf16 = lambda a: jnp.asarray(a).astype(jnp.bfloat16)  # noqa: E731
+    _, state = jax_layer.apply({'params': params}, as_bf16(hidden), as_bf16(pos), ref, shapes,
+                               capture_intermediates=True)
+    projections = state['intermediates']['self_attn']
+
+    layer = pixel_decoder.EncoderLayer(config).eval()
+    layer.load_state_dict(params_from_jax(params), strict=True)
+    for name in ('value_proj', 'sampling_offsets', 'attention_weights'):
+        jax_out = np.array(projections[name]['__call__'][0].astype(jnp.float32))
+        getattr(layer.self_attn, name).register_forward_hook(
+            lambda module, args, out, a=jax_out: torch.from_numpy(a).to(out.dtype))
+    if route == 'bf16-params':
+        layer = layer.to(torch.bfloat16)
+        ins = [torch.from_numpy(a).bfloat16() for a in (hidden, pos)]
+    else:
+        ins = [torch.from_numpy(a) for a in (hidden, pos)]
+    with torch.no_grad(), torch.autocast('cpu', dtype=torch.bfloat16,
+                                         enabled=route == 'autocast'):
+        layer(*ins, torch.from_numpy(ref), shapes)
+
+    assert recorded['jax_dtypes'] == (jnp.bfloat16, jnp.bfloat16)
+    assert recorded['port_dtypes'] == (torch.bfloat16, torch.bfloat16)
+    for name, got, want in zip(('value', 'locations', 'weights', 'msda output'),
+                               recorded['port'], recorded['jax']):
+        assert got.shape == want.shape, name
+        np.testing.assert_array_equal(got, want, err_msg=name)

@@ -11,10 +11,12 @@ convolutions run NCHW inside. Reference points and sine position embeddings
 are shape-derived constants (the HF code builds masks of zeros, so valid
 ratios are always 1).
 
-Sampling locations are computed in float32 whatever the compute dtype, and
-the MSDA core runs outside autocast (float32 coordinates and sums). (The JAX
-package forms the locations in the compute dtype, so at bf16 they are rounded
-before its MSDA casts them to float32; the port does not copy that.)
+The attention-weight softmax and the sampling locations are formed in the
+compute dtype, as the JAX package forms them (so at bf16 a level-0 location is
+rounded to 8 mantissa bits), and the MSDA core casts both to float32, as
+``ops/msda_fused.py`` does. Under autocast they are formed with autocast off,
+in the projections' dtype, so that autocast's float32 ``exp`` and ``sum`` do
+not change them.
 
 ``remat`` recomputes each encoder layer in the backward except the MSDA
 output, which is kept (the JAX ``save_only_these_names('msda_out')`` policy):
@@ -85,7 +87,8 @@ class MSDeformAttn(nn.Module):
                         spatial_shapes):
         """hidden_states: (B, L, C); reference_points: (L, 2) float32 →
         (value (B, L, heads, C/heads), locations (B, L, heads, levels,
-        points, 2) f32, weights (B, L, heads, levels, points) f32)."""
+        points, 2), weights (B, L, heads, levels, points)), the locations and
+        weights in the projections' dtype."""
         b, seq, dim = hidden_states.shape
         nh, nl, npts = self.num_heads, self.n_levels, self.n_points
 
@@ -93,18 +96,22 @@ class MSDeformAttn(nn.Module):
         value = self.value_proj(hidden_states).reshape(b, seq, nh, dim // nh)
         offsets = self.sampling_offsets(with_pos).reshape(b, seq, nh, nl, npts, 2)
         attn = self.attention_weights(with_pos).reshape(b, seq, nh, nl * npts)
-        attn = torch.softmax(attn.float(), dim=-1).reshape(b, seq, nh, nl, npts)
-
-        # sampling locations = ref + offsets / [W_l, H_l]  (HF:963-969), f32
-        normalizer = device_constant(_offset_normalizer, (spatial_shapes,), hidden_states.device)
-        locations = (reference_points[None, :, None, None, None, :]
-                     + offsets.float() / normalizer[None, None, None, :, None, :])
+        dtype = offsets.dtype
+        with torch.autocast(hidden_states.device.type, enabled=False):
+            # jax.nn.softmax's steps, each rounded to the compute dtype
+            attn = torch.exp(attn - attn.amax(dim=-1, keepdim=True))
+            attn = (attn / attn.sum(dim=-1, keepdim=True)).reshape(b, seq, nh, nl, npts)
+            # sampling locations = ref + offsets / [W_l, H_l]  (HF:963-969)
+            normalizer = device_constant(_offset_normalizer, (spatial_shapes,),
+                                         hidden_states.device, dtype)
+            locations = (reference_points.to(dtype)[None, :, None, None, None, :]
+                         + offsets / normalizer[None, None, None, :, None, :])
         return value, locations, attn
 
     @staticmethod
     def core(value, locations, attn, spatial_shapes):
-        """The MSDA sampling sum, in float32 coordinates and sums even
-        under autocast."""
+        """The MSDA sampling sum (float32 coordinates, the value dtype's
+        sums), outside autocast."""
         with torch.autocast(value.device.type, enabled=False):
             return msda(value, spatial_shapes, locations, attn)
 

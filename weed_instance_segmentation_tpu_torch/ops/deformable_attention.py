@@ -8,11 +8,12 @@ per-head value maps at the sampling locations (``align_corners=False``, zero
 padding), then a weighted sum over levels × points.
 
 Formulation: one flat value table over (batch·head·level) and one row gather
-per bilinear corner, as ``ops/msda_fused.py`` does. Sampling coordinates and
-attention weights are taken in float32 even when the values are bf16 (bf16's
-8 mantissa bits would move a level-0 tap by up to half a pixel), and the sum
-is accumulated in float32. The JAX package has no Pallas kernel for MSDA; a
-hand-written Hopper kernel is queued in ROADMAP.md.
+per bilinear corner, as ``ops/msda_fused.py`` does, with its rounding:
+sampling coordinates and attention weights are cast to float32, each corner's
+tap weight is formed in float32 and cast to the value dtype, and the corners
+are weighted, summed over points and accumulated in the value dtype (at bf16,
+each sum is taken in float32 and rounded). The JAX package has no Pallas
+kernel for MSDA; a hand-written Hopper kernel is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def msda(
     locations = sampling_locations.float()
     weights = attention_weights.float()
 
-    out = torch.zeros((b, q, heads, head_dim), dtype=torch.float32, device=value.device)
+    out = torch.zeros((b, q, heads, head_dim), dtype=value.dtype, device=value.device)
     level_off = 0
     for level, (hl, wl) in enumerate(spatial_shapes):
         loc = locations[:, :, :, level]  # (B, Q, heads, P, 2)
@@ -72,8 +73,8 @@ def msda(
                 valid = y_ok & (ix >= 0) & (ix <= wl - 1)
                 idx = base + row + ix.clamp(0, wl - 1).long()
                 rows = table[idx.reshape(-1)].reshape(b, q, heads, points, head_dim)
-                wgt = xw * yw * valid * level_w  # (B, Q, heads, P) f32
-                out += torch.einsum('bqhpd,bqhp->bqhd', rows.float(), wgt)
+                wgt = (xw * yw * valid * level_w).to(value.dtype)  # (B, Q, heads, P)
+                out += (rows * wgt[..., None]).sum(dim=3)
         level_off += hl * wl
 
-    return out.to(value.dtype).reshape(b, q, heads * head_dim)
+    return out.reshape(b, q, heads * head_dim)
