@@ -11,7 +11,9 @@ Phases, each of which must pass (the script exits non-zero on any failure):
    medians, in turns with the plain version and one PyTorch library call;
    and each one's device-busy time per call from a ``torch.profiler`` trace,
    which leaves out the host's time between launches):
-   the post-process kernel at the serving shape; window attention forward
+   the post-process kernel at the serving shape, twice on the same logits
+   for the same bits, with each of its two launches' device µs, its achieved
+   GB/s and its share of the byte bound; window attention forward
    and backward at Swin-L training batch 2, stage 1 (NW 578, H 6, T 144,
    D 32) and stage 3 (NW 50, H 24), with and without the shift mask, f32
    and bf16, the backward twice on the same inputs for the same bits, and
@@ -201,17 +203,15 @@ def counts() -> dict:
             'masked_attention_bwd': masked_attention.backward_launches}
 
 
-def phase_postprocess_kernel(dev: torch.device) -> dict:
-    """Kernel vs plain version at the serving shape."""
-    b, q, hm, wm = SERVING_BATCH, 200, SERVING_HW // 4, SERVING_HW // 4
-    g = torch.Generator(device=dev).manual_seed(0)
-    logits = torch.randn((b, q, hm, wm), generator=g, device=dev) * 2
-    sig, cnt, bins = fused_upsample_stats(logits, SCORE_RESOLUTION)
+def check_postprocess(logits: torch.Tensor, outputs: tuple) -> tuple[int, float]:
+    """The post-process kernel's outputs against the plain version on the
+    same logits: a bin may flip only at a zero crossing (|up| within float32
+    summation noise), pos_cnt exact and sig_sum within rtol 1e-5 once each
+    flip is accounted. Returns (flips, sig_sum's largest abs error)."""
+    sig, cnt, bins = outputs
     p_sig, p_cnt, p_bins = fused_upsample_stats_plain(logits, SCORE_RESOLUTION)
     up = upsample_plain(logits, SCORE_RESOLUTION)
     torch.cuda.synchronize()
-
-    # a bin may flip only at a zero crossing: |up| within float32 summation noise
     flip = bins != p_bins
     n_flips = int(flip.sum())
     if n_flips:
@@ -222,25 +222,57 @@ def phase_postprocess_kernel(dev: torch.device) -> dict:
     p_sig_adj = p_sig + (delta * torch.sigmoid(up)).sum(dim=(-1, -2))
     err = (sig - p_sig_adj).abs()
     check(bool((err <= 1e-5 * p_sig_adj.abs()).all()), 'sig_sum beyond rtol 1e-5')
+    return n_flips, err.max().item()
+
+
+def postprocess_logits(dev: torch.device) -> torch.Tensor:
+    """Mask logits at the serving shape: (4, 200, 200, 200) f32."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    return torch.randn((SERVING_BATCH, 200, SERVING_HW // 4, SERVING_HW // 4), generator=g,
+                       device=dev) * 2
+
+
+def postprocess_bytes(logits: torch.Tensor) -> int:
+    """Bytes the post-process must move: the logits read once, the bins and
+    the two sums written once."""
+    b, q = logits.shape[:2]
+    return logits.numel() * 4 + b * q * SCORE_RESOLUTION[0] * SCORE_RESOLUTION[1] + 2 * b * q * 4
+
+
+def phase_postprocess_kernel(dev: torch.device) -> dict:
+    """Kernel vs plain version at the serving shape, the same bits from two
+    calls, and each launch's device time against the byte bound."""
+    logits = postprocess_logits(dev)
+    first = fused_upsample_stats(logits, SCORE_RESOLUTION)
+    n_flips, err = check_postprocess(logits, first)
     log(f'post-process kernel vs plain at {tuple(logits.shape)} -> {SCORE_RESOLUTION}: '
-        f'{n_flips} bin flips at zero crossings, sig_sum max abs err {err.max().item():.3e} '
-        f'(max rel {(err / p_sig_adj.abs()).max().item():.3e}), pos_cnt exact after flips')
-    del up, p_bins, bins, delta
+        f'{n_flips} bin flips at zero crossings, sig_sum max abs err {err:.3e}, '
+        f'pos_cnt exact after flips')
+    second = fused_upsample_stats(logits, SCORE_RESOLUTION)
+    check(all(torch.equal(a, b) for a, b in zip(first, second)),
+          'two post-process calls gave different bits')
+    log('post-process kernel: two calls give the same bits of sig_sum, pos_cnt and bins')
+    del first, second
 
     t = timed_in_turns({'plain': lambda: fused_upsample_stats_plain(logits, SCORE_RESOLUTION),
                         'kernel': lambda: fused_upsample_stats(logits, SCORE_RESOLUTION)})
-    out_px = b * q * SCORE_RESOLUTION[0] * SCORE_RESOLUTION[1]
-    moved = logits.numel() * 4 + out_px + 2 * b * q * 4
-    log(f'post-process kernel {t["kernel"]:.4f} ms, plain {t["plain"]:.4f} ms (medians of '
-        f'{TIMED_RUNS}); moves {moved / 1e6:.1f} MB = {moved / t["kernel"] / 1e6:.1f} GB/s')
+    out_px = logits.shape[0] * logits.shape[1] * SCORE_RESOLUTION[0] * SCORE_RESOLUTION[1]
+    moved = postprocess_bytes(logits)
     # 4 taps x 2 flops per output pixel, plus the sigmoid and the sums
-    dev_ms = {name: device_ms(lambda fn=fn: fn(logits, SCORE_RESOLUTION))
-              for name, fn in (('kernel', fused_upsample_stats),
-                               ('plain', fused_upsample_stats_plain))}
-    return {'max_abs_err': err.max().item(), 'ms': t['kernel'], 'plain_ms': t['plain'],
-            **bound(moved, 12 * out_px, torch.float32), 'library_ms': None,
-            'device_ms': dev_ms['kernel'], 'plain_device_ms': dev_ms['plain'],
-            'library_device_ms': None}
+    bound_ = bound(moved, 12 * out_px, torch.float32)
+    split = device_split(lambda: fused_upsample_stats(logits, SCORE_RESOLUTION))
+    dev_ms = sum(split.values())
+    plain_dev_ms = device_ms(lambda: fused_upsample_stats_plain(logits, SCORE_RESOLUTION))
+    log(f'post-process kernel {t["kernel"]:.4f} ms, plain {t["plain"]:.4f} ms (medians of '
+        f'{TIMED_RUNS}); device busy {dev_ms:.4f} / {plain_dev_ms:.4f} ms; moves '
+        f'{moved / 1e6:.1f} MB = {moved / dev_ms / 1e6:.1f} GB/s on the device, '
+        f'{bound_["bound_ms"] / dev_ms:.3f} of the byte bound {bound_["bound_ms"]:.4f} ms')
+    log('  per launch: ' + '; '.join(f'{kernel_name(key)} {1e3 * ms:.2f} µs'
+                                     for key, ms in split.most_common()))
+    return {'max_abs_err': err, 'ms': t['kernel'], 'plain_ms': t['plain'], **bound_,
+            'library_ms': None, 'device_ms': dev_ms, 'plain_device_ms': plain_dev_ms,
+            'library_device_ms': None,
+            'launch_device_us': {kernel_name(key): 1e3 * ms for key, ms in split.items()}}
 
 
 def _rel_errors(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:

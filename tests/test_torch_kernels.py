@@ -21,7 +21,8 @@ from weed_instance_segmentation_tpu_torch.ops.masked_attention import (
     BLOCKS_PER_SM, KEY_TILE, ROW_TILE, key_chunks, masked_attention, masked_attention_plain,
 )
 from weed_instance_segmentation_tpu_torch.ops.postprocess_kernel import (
-    bilinear_taps, fused_upsample_stats, fused_upsample_stats_plain, upsample_plain,
+    BAND_ROWS, SHARED_LIMIT, band_plan, bilinear_taps, fused_upsample_stats,
+    fused_upsample_stats_plain, shared_bytes, tap_table, upsample_plain,
 )
 from weed_instance_segmentation_tpu_torch.ops.resize import bilinear_resize_matrix
 from weed_instance_segmentation_tpu_torch.ops import window_attention as window_ops
@@ -82,6 +83,113 @@ def test_cpu_tensor_runs_the_plain_version():
     assert got[0].shape == got[1].shape == (2, 3) and got[2].shape == (2, 3, 24, 20)
 
 
+@pytest.mark.parametrize('hm,wm,sh,sw', [(200, 200, 384, 384), (37, 50, 96, 64),
+                                          (300, 300, 128, 128), (50, 60, 100, 70), (1, 1, 1, 1),
+                                          (7, 5, 384, 2048), (4000, 30, 10, 10)])
+def test_band_plan_covers_every_row_and_fits(hm, wm, sh, sw):
+    """Every output row lies in one band; each band's taps read inside its
+    staged span; the block's shared memory is within the card's limit; and
+    the tap table holds the taps' indices and weights bit for bit."""
+    rows, bands, span = band_plan(hm, wm, sh, sw, BAND_ROWS)
+    assert 1 <= rows <= BAND_ROWS and bands == -(-sh // rows)
+    table = tap_table(hm, sh)
+    idx, w = bilinear_taps(hm, sh)
+    np.testing.assert_array_equal(table[:, :2].T, idx)
+    np.testing.assert_array_equal(table[:, 2:].copy().view(np.float32).T, w)
+    for band in range(bands):
+        taps = table[band * rows:(band + 1) * rows]
+        assert len(taps) >= 1
+        r_lo = taps[0, 0]
+        assert taps[:, :2].min() == r_lo and taps[:, :2].max() - r_lo < span
+    assert shared_bytes(wm, sw, rows, span) <= SHARED_LIMIT
+
+
+def test_band_plan_halves_bands_and_raises_beyond_shared_memory():
+    """A downsample's span grows with the ratio, so the band is halved to
+    keep a block's shared memory small; a map too wide for even one output
+    row raises."""
+    rows, _, span = band_plan(1200, 300, 128, 128, BAND_ROWS)
+    assert rows < BAND_ROWS and span > rows
+    with pytest.raises(ValueError, match='shared memory'):
+        band_plan(8, 40000, 16, 16, BAND_ROWS)
+
+
+def _banded_upsample_stats(logits, score_hw):
+    """The kernel's arithmetic in float32 on the CPU: the output rows cut in
+    bands (``band_plan``), each band's input rows staged as one span, the
+    vertical pass over the span's rows, then the horizontal pass, each with
+    the tap table's two taps; per-band partial sums and counts, then each
+    map's partials added in band order."""
+    b, q, hm, wm = logits.shape
+    sh, sw = score_hw
+    rows, bands, span = band_plan(hm, wm, sh, sw, BAND_ROWS)
+    maps = logits.reshape(b * q, hm, wm)
+
+    def taps(in_size, out_size):
+        t = torch.from_numpy(tap_table(in_size, out_size))
+        return (t[:, 0].long(), t[:, 1].long(), t[:, 2].contiguous().view(torch.float32),
+                t[:, 3].contiguous().view(torch.float32))
+
+    ylo, yhi, wy0, wy1 = taps(hm, sh)
+    xlo, xhi, wx0, wx1 = taps(wm, sw)
+    sig_part = torch.zeros((b * q, bands))
+    cnt_part = torch.zeros((b * q, bands), dtype=torch.int32)
+    bins = torch.empty((b * q, sh, sw), dtype=torch.int8)
+    for band in range(bands):
+        oy = torch.arange(band * rows, min(band * rows + rows, sh))
+        r_lo, r_hi = int(ylo[oy[0]]), int(yhi[oy[-1]])
+        assert r_hi - r_lo < span
+        staged = maps[:, r_lo:r_hi + 1]
+        v = (wy0[oy, None] * staged[:, ylo[oy] - r_lo]
+             + wy1[oy, None] * staged[:, yhi[oy] - r_lo])
+        up = wx0 * v[:, :, xlo] + wx1 * v[:, :, xhi]
+        pos = up > 0
+        bins[:, oy] = pos.to(torch.int8)
+        sig_part[:, band] = torch.where(pos, torch.sigmoid(up), 0.0).sum(dim=(1, 2))
+        cnt_part[:, band] = pos.sum(dim=(1, 2), dtype=torch.int32)
+    sig = torch.zeros(b * q)
+    for band in range(bands):
+        sig = sig + sig_part[:, band]
+    return (sig.reshape(b, q), cnt_part.sum(dim=1).float().reshape(b, q),
+            bins.reshape(b, q, sh, sw))
+
+
+def _assert_flips_accounted(sig, cnt, bins, logits, score_hw):
+    """Against the plain version: a bin may flip only where the plain
+    upsample is within 1e-5 of zero (float32 summation order); pos_cnt is
+    exact and sig_sum within rtol 1e-5 once each flip has moved its pixel
+    in or out of both sums."""
+    up = upsample_plain(logits, score_hw)
+    p_sig, p_cnt, p_bins = fused_upsample_stats_plain(logits, score_hw)
+    flips = bins != p_bins
+    if flips.any():
+        assert up[flips].abs().max().item() <= 1e-5
+    delta = (bins.float() - p_bins.float()) * flips
+    assert torch.equal(cnt, p_cnt + delta.sum(dim=(-1, -2)))
+    want = p_sig + (delta * torch.sigmoid(up)).sum(dim=(-1, -2))
+    assert ((sig - want).abs() <= 1e-5 * want.abs()).all()
+
+
+UPSAMPLE_CASES = {  # (B, Q, Hm, Wm), (sh, sw)
+    'serving-200-to-384': ((1, 2, 200, 200), (384, 384)),
+    'misaligned-37x50': ((1, 3, 37, 50), (96, 64)),
+    'downsample-300-to-128': ((1, 2, 300, 300), (128, 128)),
+    'ragged-bands-byte-stores': ((1, 2, 45, 51), (100, 99)),
+    'one-map': ((1, 1, 25, 25), (384, 384)),
+}
+
+
+@pytest.mark.parametrize('case', list(UPSAMPLE_CASES))
+def test_banded_upsample_arithmetic_matches_plain(case):
+    """The banded kernel's staging, two passes and band-ordered sums,
+    rehearsed on the CPU, against the plain matmul form."""
+    shape, score_hw = UPSAMPLE_CASES[case]
+    logits = torch.from_numpy(
+        np.random.default_rng(2).standard_normal(shape).astype(np.float32) * 2)
+    sig, cnt, bins = _banded_upsample_stats(logits, score_hw)
+    _assert_flips_accounted(sig, cnt, bins, logits, score_hw)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -92,7 +200,11 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('shape,score_hw', [((2, 16, 200, 200), (384, 384)),
-                                            ((1, 3, 37, 50), (96, 64))])
+                                            ((1, 3, 37, 50), (96, 64)),
+                                            ((1, 2, 45, 51), (100, 99)),
+                                            ((2, 4, 300, 300), (128, 128)),
+                                            ((1, 1, 200, 200), (384, 384)),
+                                            ((1, 2, 9, 7), (40, 2100))])
 def test_kernel_matches_plain_on_card(cuda_device, shape, score_hw):
     """sig_sum within rtol 1e-5, after allowing each bin flip its sigmoid
     (≈0.5); every flipped bin lies where the plain upsample is within 1e-5
@@ -111,6 +223,42 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, score_hw):
     flips_per_map = flips.sum(dim=(-1, -2)).float()
     assert ((cnt - p_cnt).abs() <= flips_per_map).all()
     assert ((sig - p_sig).abs() <= 1e-5 * p_sig.abs() + 0.5001 * flips_per_map).all()
+
+
+@pytest.mark.cuda
+def test_upsample_kernel_takes_logits_off_a_16_byte_boundary(cuda_device):
+    """Logits that start 4 bytes past a 16-byte boundary (a contiguous view
+    at a storage offset): each band's span is staged by 4-byte copies up to
+    the first 16-byte boundary, then by 16-byte copies."""
+    shape, score_hw = (1, 3, 40, 48), (96, 96)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    storage = torch.randn(math.prod(shape) + 1, generator=g, device=cuda_device) * 2
+    logits = storage[1:].view(shape)
+    assert logits.is_contiguous() and logits.data_ptr() % 16 == 4
+    sig, cnt, bins = fused_upsample_stats(logits, score_hw)
+    _assert_flips_accounted(sig, cnt, bins, logits, score_hw)
+
+
+@pytest.mark.cuda
+def test_upsample_kernel_is_deterministic(cuda_device):
+    """Two calls at the serving shape give the same bits of all three
+    outputs: the band partials are added in band order, with no atomics."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    logits = torch.randn((4, 200, 200, 200), generator=g, device=cuda_device) * 2
+    first = fused_upsample_stats(logits, (384, 384))
+    second = fused_upsample_stats(logits, (384, 384))
+    for name, a, b in zip(('sig_sum', 'pos_cnt', 'bins'), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_upsample_kernel_launches_only_its_two_kernels(cuda_device, tmp_path):
+    """One call runs the band kernel and the band-sum launch, and nothing
+    else on the device (the taps are cached there after the first call)."""
+    logits = torch.randn((2, 8, 200, 200), device=cuda_device)
+    names = _device_kernels(lambda: fused_upsample_stats(logits, (384, 384)), tmp_path)
+    assert len(names) == 2, names
+    assert 'upsample_stats_band_kernel' in names[0] and 'band_sums_kernel' in names[1], names
 
 
 def _kernel_vs_plain(kernel, plain, tensors, consts, grad_index, dtype, seed):

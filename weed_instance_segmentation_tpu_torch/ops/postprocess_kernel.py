@@ -12,14 +12,18 @@ fixed 384² scoring resolution and reduces them; this computes, per
 
 The upsample is the separable bilinear of ``ops/resize.py::
 bilinear_resize_matrix``. A CUDA tensor goes to the kernel in
-``csrc/postprocess_stats.cu`` (one block per map; see the note there on what
-bounds it); a CPU tensor goes to :func:`fused_upsample_stats_plain`, the
-separable matmul with the same taps. Kernel and plain version agree up to
-float32 summation order: a bin can flip only where the upsampled logit is
-within rounding of zero.
+``csrc/postprocess_stats.cu`` (one block per band of output rows of a map,
+the band's input rows staged in shared memory, then a second launch that adds
+the bands' partial sums in band order; see the note there on what bounds
+it); :func:`band_plan` sizes the bands. A CPU tensor goes to
+:func:`fused_upsample_stats_plain`, the separable matmul with the same taps.
+Kernel and plain version agree up to float32 summation order: a bin can flip
+only where the upsampled logit is within rounding of zero.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -31,6 +35,14 @@ from weed_instance_segmentation_tpu_torch.ops.resize import (
 )
 
 _LIBRARY = 'postprocess_stats'
+# Output rows a block makes, and warps a block, where they fit (timed on the
+# card by profile_postprocess_stats.py; PERF.md)
+BAND_ROWS = 32
+WARPS = 6
+SEGMENT = 128  # output columns a warp makes at once (csrc/postprocess_stats.cu)
+SHARED_TARGET = 64 * 1024  # bands are halved until a block's shared memory fits this
+SHARED_LIMIT = 232448 - 128  # what a block may take beside the kernel's static arrays
+TILE_STORES = True  # bins leave a block by one bulk copy where SW % 16 == 0
 
 
 def bilinear_taps(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
@@ -48,12 +60,54 @@ def bilinear_taps(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
     return idx, np.stack([w_lo, w_hi]).astype(np.float32)
 
 
-def _tap_indices(in_size: int, out_size: int) -> np.ndarray:
-    return bilinear_taps(in_size, out_size)[0]
+def tap_table(in_size: int, out_size: int) -> np.ndarray:
+    """The kernel's taps: int32 (out, 4) rows of (lo, hi, the bits of
+    w_lo, the bits of w_hi), one 16-byte load an output row or column."""
+    idx, w = bilinear_taps(in_size, out_size)
+    return np.stack([idx[0], idx[1], w[0].view(np.int32), w[1].view(np.int32)], axis=1)
 
 
-def _tap_weights(in_size: int, out_size: int) -> np.ndarray:
-    return bilinear_taps(in_size, out_size)[1]
+def shared_bytes(wm: int, sw: int, band_rows: int, span_rows: int) -> int:
+    """A block's dynamic shared memory (``csrc/postprocess_stats.cu``): region
+    A, the staged input span (with 3 floats of slack to keep 16-byte
+    alignment) or, with ``TILE_STORES``, the band's bins once the span is
+    read; the band's vertical values; its row taps."""
+    region_a = (span_rows * wm + 6) // 4 * 4
+    if TILE_STORES and sw % 16 == 0:
+        region_a = max(region_a, -(-band_rows * sw // 16) * 4)
+    return 4 * (region_a + (band_rows * wm + 3) // 4 * 4) + 16 * band_rows
+
+
+@functools.lru_cache(maxsize=64)
+def band_plan(hm: int, wm: int, sh: int, sw: int, band_rows: int) -> tuple[int, int, int]:
+    """(band_rows, bands, span_rows) of a launch: ``band_rows`` output rows
+    a block, halved while a block's shared memory exceeds ``SHARED_TARGET``;
+    ``bands = ceil(sh / band_rows)``; and the most input rows a band reads
+    (its first row's lo to its last row's hi: the taps are monotone). Raises
+    where even a one-row band exceeds the card's shared memory (a steep
+    downsample of wide maps)."""
+    lo, hi = bilinear_taps(hm, sh)[0]
+    band_rows = min(band_rows, sh)
+    while True:
+        starts = np.arange(0, sh, band_rows)
+        ends = np.minimum(starts + band_rows, sh) - 1
+        span = int((hi[ends] - lo[starts]).max()) + 1
+        smem = shared_bytes(wm, sw, band_rows, span)
+        if band_rows == 1 or smem <= SHARED_TARGET:
+            break
+        band_rows //= 2
+    if smem > SHARED_LIMIT:
+        raise ValueError(f'a band of {band_rows} output rows of {hm}x{wm} logits resized to '
+                         f'{sh}x{sw} needs {smem} bytes of shared memory, beyond the '
+                         f'{SHARED_LIMIT} a block may use')
+    return band_rows, len(starts), span
+
+
+def block_threads(sw: int) -> int:
+    """Threads a block: ``WARPS`` rounded down to whole sets of the
+    row's 128-column segments, so that every warp has a segment."""
+    segments = -(-sw // SEGMENT)
+    return 32 * (WARPS // segments * segments if segments <= WARPS else WARPS)
 
 
 def upsample_plain(mask_logits: torch.Tensor, score_hw: tuple[int, int]) -> torch.Tensor:
@@ -104,17 +158,20 @@ def fused_upsample_stats(mask_logits: torch.Tensor, score_hw: tuple[int, int] = 
     b, q, hm, wm = mask_logits.shape
     sh, sw = score_hw
     dev = mask_logits.device
-    y_idx = device_constant(_tap_indices, (hm, sh), dev)
-    y_w = device_constant(_tap_weights, (hm, sh), dev)
-    x_idx = device_constant(_tap_indices, (wm, sw), dev)
-    x_w = device_constant(_tap_weights, (wm, sw), dev)
+    band_rows, bands, span_rows = band_plan(hm, wm, sh, sw, BAND_ROWS)
+    if b * q * bands >= 2 ** 31:
+        raise ValueError(f'{b * q} maps of {bands} bands exceed the kernel\'s 32-bit grid')
+    y_taps = device_constant(tap_table, (hm, sh), dev)
+    x_taps = device_constant(tap_table, (wm, sw), dev)
+    sig_part = torch.empty((b * q, bands), dtype=torch.float32, device=dev)
+    cnt_part = torch.empty((b * q, bands), dtype=torch.int32, device=dev)
     sig_sum = torch.empty((b, q), dtype=torch.float32, device=dev)
     pos_cnt = torch.empty((b, q), dtype=torch.float32, device=dev)
     bins = torch.empty((b, q, sh, sw), dtype=torch.int8, device=dev)
-    launch(entry_point(_LIBRARY, 'wis_postprocess_stats', 8, 5), dev, f'{_LIBRARY} kernel',
-           mask_logits.data_ptr(), y_idx.data_ptr(), y_w.data_ptr(), x_idx.data_ptr(),
-           x_w.data_ptr(), sig_sum.data_ptr(), pos_cnt.data_ptr(), bins.data_ptr(),
-           b * q, hm, wm, sh, sw)
+    launch(entry_point(_LIBRARY, 'wis_postprocess_stats', 8, 9), dev, f'{_LIBRARY} kernel',
+           mask_logits.data_ptr(), y_taps.data_ptr(), x_taps.data_ptr(), sig_part.data_ptr(),
+           cnt_part.data_ptr(), sig_sum.data_ptr(), pos_cnt.data_ptr(), bins.data_ptr(),
+           b * q, hm, wm, sh, sw, band_rows, span_rows, block_threads(sw), int(TILE_STORES))
     fused_upsample_stats.launches += 1
     return sig_sum, pos_cnt, bins
 
