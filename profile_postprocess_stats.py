@@ -2,10 +2,9 @@
 the serving shape ((4, 200, 200, 200) f32 mask logits → 384²), for each
 band height and block size:
 
-    python3 profile_postprocess_stats.py [--band-rows 8 16 32 64] [--warps 3 6 12] [--tile-stores 0 1]
+    python3 profile_postprocess_stats.py [--band-rows 8 16 32 64] [--warps 3 6 12]
 
-Each line is one (band rows, warps, bins by bulk copies or by 32-bit stores)
-and gives the band plan, the device µs
+Each line is one (band rows, warps) and gives the band plan, the device µs
 per call of each launch by name over 20 calls in a ``torch.profiler`` trace,
 the achieved bytes per second against the byte bound, and the CUDA-event
 median of the call (host launch time included). Every variant is first held
@@ -41,8 +40,8 @@ def profile(logits: torch.Tensor, band_rows: int, warps: int) -> str:
     event_ms = timed_in_turns({'kernel': call})['kernel']
     launches = '; '.join(f'{kernel_name(key)} {1e3 * ms:.2f} µs' for key, ms in split.most_common())
     return (f'band_rows={plan[0]} bands={plan[1]} span_rows={plan[2]} threads={threads} '
-            f'shared={ops.shared_bytes(logits.shape[3], SCORE_RESOLUTION[1], plan[0], plan[2])} B '
-            f'tile_stores={ops.TILE_STORES}: {launches}; '
+            f'shared={ops.shared_bytes(logits.shape[3], SCORE_RESOLUTION[1], plan[0], plan[2])} B: '
+            f'{launches}; '
             f'device {dev_ms:.4f} ms = {moved / dev_ms / 1e6:.1f} GB/s, '
             f'{moved / HBM_BYTES_PER_S * 1e3 / dev_ms:.3f} of the byte bound; '
             f'event median {event_ms:.4f} ms')
@@ -52,7 +51,6 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--band-rows', type=int, nargs='*', default=[ops.BAND_ROWS])
     parser.add_argument('--warps', type=int, nargs='*', default=[ops.WARPS])
-    parser.add_argument('--tile-stores', type=int, nargs='*', default=[int(ops.TILE_STORES)])
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('profile_postprocess_stats: needs an NVIDIA GPU', file=sys.stderr)
@@ -60,12 +58,9 @@ def main() -> int:
     print(card_line())
     logits = postprocess_logits(torch.device('cuda', 0))
     ops.SHARED_TARGET = ops.SHARED_LIMIT  # time each band height as asked, unhalved
-    for tile in args.tile_stores:
-        ops.TILE_STORES = bool(tile)
-        ops.band_plan.cache_clear()
-        for band_rows in args.band_rows:
-            for warps in args.warps:
-                print(profile(logits, band_rows, warps), flush=True)
+    for band_rows in args.band_rows:
+        for warps in args.warps:
+            print(profile(logits, band_rows, warps), flush=True)
     return 0
 
 

@@ -47,7 +47,7 @@
 //   - deterministic sums: each block writes its band's partial sum and
 //     integer count, and a second small launch adds each map's partials in
 //     band order. There are no atomics, so two calls give the same bits.
-// Timed and dropped (profile_postprocess_stats.py, PERF.md): blocks that walk
+// Timed and dropped (PERF.md): blocks that walk
 // a run of bands with the next span copied while they compute (slower: fewer
 // warps an SM), and two rows a step in each warp (no faster).
 
@@ -322,7 +322,8 @@ __global__ void band_sums_kernel(const float* __restrict__ sig_part,
 // alignment) or, later, the band's bins
 int region_a_floats(int wm, int sw, int band_rows, int span_rows, int stores) {
   const long long span = (static_cast<long long>(span_rows) * wm + 6) & ~3LL;
-  const long long tile = stores == kTileStores ? (static_cast<long long>(band_rows) * sw + 15) / 16 * 4 : 0;
+  const long long tile =
+      stores == kTileStores ? (static_cast<long long>(band_rows) * sw + 15) / 16 * 4 : 0;
   return static_cast<int>(span > tile ? span : tile);
 }
 
@@ -342,17 +343,17 @@ long long shared_bytes(int wm, int band_rows, int region_a) {
 // (sw, 4) int32 (lo, hi, float bits of w_lo, w_hi); sig_part and cnt_part
 // (maps, bands) scratch, bands = ceil(sh / band_rows); sig_sum, pos_cnt
 // (maps,) f32; bins (maps, sh, sw) int8. span_rows bounds the input rows any
-// band reads. tile_stores asks for the bins to leave by bulk copies where SW
-// and the bins allow it (kTileStores); otherwise 32-bit or byte stores.
+// band reads. The bins leave by bulk copies where SW % 16 == 0 and the bins
+// are 16-byte aligned (kTileStores); otherwise by 32-bit or byte stores.
 extern "C" int wis_postprocess_stats(const void* logits, const void* y_taps, const void* x_taps,
                                      void* sig_part, void* cnt_part, void* sig_sum,
                                      void* pos_cnt, void* bins, int maps, int hm, int wm, int sh,
                                      int sw, int band_rows, int span_rows, int threads,
-                                     int tile_stores, void* stream) {
+                                     void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (maps <= 0) return static_cast<int>(cudaGetLastError());
   const int stores = sw % 4 ? kByteStores
-                     : tile_stores && sw % 16 == 0 && reinterpret_cast<uintptr_t>(bins) % 16 == 0
+                     : sw % 16 == 0 && reinterpret_cast<uintptr_t>(bins) % 16 == 0
                          ? kTileStores
                          : kWordStores;
   const int region_a = region_a_floats(wm, sw, band_rows, span_rows, stores);

@@ -42,7 +42,6 @@ WARPS = 6
 SEGMENT = 128  # output columns a warp makes at once (csrc/postprocess_stats.cu)
 SHARED_TARGET = 64 * 1024  # bands are halved until a block's shared memory fits this
 SHARED_LIMIT = 232448 - 128  # what a block may take beside the kernel's static arrays
-TILE_STORES = True  # bins leave a block by one bulk copy where SW % 16 == 0
 
 
 def bilinear_taps(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
@@ -70,10 +69,10 @@ def tap_table(in_size: int, out_size: int) -> np.ndarray:
 def shared_bytes(wm: int, sw: int, band_rows: int, span_rows: int) -> int:
     """A block's dynamic shared memory (``csrc/postprocess_stats.cu``): region
     A, the staged input span (with 3 floats of slack to keep 16-byte
-    alignment) or, with ``TILE_STORES``, the band's bins once the span is
-    read; the band's vertical values; its row taps."""
+    alignment) or, where SW % 16 == 0, the band's bins once the span is read;
+    the band's vertical values; its row taps."""
     region_a = (span_rows * wm + 6) // 4 * 4
-    if TILE_STORES and sw % 16 == 0:
+    if sw % 16 == 0:
         region_a = max(region_a, -(-band_rows * sw // 16) * 4)
     return 4 * (region_a + (band_rows * wm + 3) // 4 * 4) + 16 * band_rows
 
@@ -168,10 +167,10 @@ def fused_upsample_stats(mask_logits: torch.Tensor, score_hw: tuple[int, int] = 
     sig_sum = torch.empty((b, q), dtype=torch.float32, device=dev)
     pos_cnt = torch.empty((b, q), dtype=torch.float32, device=dev)
     bins = torch.empty((b, q, sh, sw), dtype=torch.int8, device=dev)
-    launch(entry_point(_LIBRARY, 'wis_postprocess_stats', 8, 9), dev, f'{_LIBRARY} kernel',
+    launch(entry_point(_LIBRARY, 'wis_postprocess_stats', 8, 8), dev, f'{_LIBRARY} kernel',
            mask_logits.data_ptr(), y_taps.data_ptr(), x_taps.data_ptr(), sig_part.data_ptr(),
            cnt_part.data_ptr(), sig_sum.data_ptr(), pos_cnt.data_ptr(), bins.data_ptr(),
-           b * q, hm, wm, sh, sw, band_rows, span_rows, block_threads(sw), int(TILE_STORES))
+           b * q, hm, wm, sh, sw, band_rows, span_rows, block_threads(sw))
     fused_upsample_stats.launches += 1
     return sig_sum, pos_cnt, bins
 
