@@ -29,10 +29,13 @@ RUNS = 20
 
 
 def profile(logits: torch.Tensor, band_rows: int, warps: int) -> str:
-    ops.BAND_ROWS, ops.WARPS = band_rows, warps
-    plan = ops.band_plan(*logits.shape[2:], *SCORE_RESOLUTION, band_rows)
-    threads = ops.block_threads(SCORE_RESOLUTION[1])
-    call = lambda: ops.fused_upsample_stats(logits, SCORE_RESOLUTION)  # noqa: E731
+    """One variant: each band height is timed as asked, not halved to the
+    wrapper's shared-memory target."""
+    hm, wm = logits.shape[2:]
+    plan = ops.band_plan(hm, wm, *SCORE_RESOLUTION, band_rows, ops.SHARED_LIMIT)
+    threads = ops.block_threads(SCORE_RESOLUTION[1], warps)
+    call = lambda: ops._launch(logits, SCORE_RESOLUTION, band_rows, warps,  # noqa: E731
+                               ops.SHARED_LIMIT)
     check_postprocess(logits, call())
     split = device_split(call, RUNS)
     dev_ms = sum(split.values())
@@ -40,7 +43,7 @@ def profile(logits: torch.Tensor, band_rows: int, warps: int) -> str:
     event_ms = timed_in_turns({'kernel': call})['kernel']
     launches = '; '.join(f'{kernel_name(key)} {1e3 * ms:.2f} µs' for key, ms in split.most_common())
     return (f'band_rows={plan[0]} bands={plan[1]} span_rows={plan[2]} threads={threads} '
-            f'shared={ops.shared_bytes(logits.shape[3], SCORE_RESOLUTION[1], plan[0], plan[2])} B: '
+            f'shared={ops.shared_layout(wm, SCORE_RESOLUTION[1], plan[0], plan[2])[2]} B: '
             f'{launches}; '
             f'device {dev_ms:.4f} ms = {moved / dev_ms / 1e6:.1f} GB/s, '
             f'{moved / HBM_BYTES_PER_S * 1e3 / dev_ms:.3f} of the byte bound; '
@@ -57,7 +60,6 @@ def main() -> int:
         return 1
     print(card_line())
     logits = postprocess_logits(torch.device('cuda', 0))
-    ops.SHARED_TARGET = ops.SHARED_LIMIT  # time each band height as asked, unhalved
     for band_rows in args.band_rows:
         for warps in args.warps:
             print(profile(logits, band_rows, warps), flush=True)

@@ -22,7 +22,7 @@ from weed_instance_segmentation_tpu_torch.ops.masked_attention import (
 )
 from weed_instance_segmentation_tpu_torch.ops.postprocess_kernel import (
     BAND_ROWS, SHARED_LIMIT, band_plan, bilinear_taps, fused_upsample_stats,
-    fused_upsample_stats_plain, shared_bytes, tap_table, upsample_plain,
+    fused_upsample_stats_plain, shared_layout, tap_table, upsample_plain,
 )
 from weed_instance_segmentation_tpu_torch.ops.resize import bilinear_resize_matrix
 from weed_instance_segmentation_tpu_torch.ops import window_attention as window_ops
@@ -101,7 +101,7 @@ def test_band_plan_covers_every_row_and_fits(hm, wm, sh, sw):
         assert len(taps) >= 1
         r_lo = taps[0, 0]
         assert taps[:, :2].min() == r_lo and taps[:, :2].max() - r_lo < span
-    assert shared_bytes(wm, sw, rows, span) <= SHARED_LIMIT
+    assert shared_layout(wm, sw, rows, span)[2] <= SHARED_LIMIT
 
 
 def test_band_plan_halves_bands_and_raises_beyond_shared_memory():

@@ -13,6 +13,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+import flax.linen
 
 from weed_instance_segmentation_tpu.engine.model_utils import init_params
 from weed_instance_segmentation_tpu.models import configuration as jax_configuration
@@ -258,3 +259,80 @@ def test_msda_inputs_match_jax_at_bf16(monkeypatch, route):
                                recorded['port'], recorded['jax']):
         assert got.shape == want.shape, name
         np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+def test_msda_input_grads_near_jax_at_bf16(monkeypatch):
+    """The bf16 backward of one encoder layer's deformable attention, on the
+    training route (float32 weights under bf16 autocast), in both stacks:
+    the gradients that reach the value, sampling-offset and attention-weight
+    projections' outputs from one cotangent on the MSDA output. Both stacks
+    start from the same projection outputs (the JAX package's). The routes
+    differ: the JAX package's custom VJP (``ops/msda_select.py``) against
+    autograd through the port's fused form, and each stack's own rounding of
+    the softmax's backward (both stop the gradient at the max). So most
+    entries differ in their last bits (59-65 % here); at this seed the
+    largest gap is 1.15 % of the largest gradient for the values, 0.74 %
+    for the offsets and 0.78 % for the attention logits, and the bound is
+    two bf16 ulps of the largest gradient (2**-6 of it)."""
+    names = ('value_proj', 'sampling_offsets', 'attention_weights')
+    config = Mask2FormerConfig.tiny_test(num_labels=3)
+    jax_layer = jax_pixel_decoder.EncoderLayer(
+        jax_configuration.Mask2FormerConfig.tiny_test(num_labels=3), dtype=jnp.bfloat16)
+    shapes = ((2, 16), (4, 32), (8, 64))
+    rng = np.random.default_rng(9)
+    seq = sum(h * w for h, w in shapes)
+    bf16 = lambda a: np.array(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))  # noqa: E731
+    hidden = bf16(rng.standard_normal((2, seq, config.feature_size)))
+    pos = bf16(rng.standard_normal((1, seq, config.feature_size)))
+    cotangent = rng.standard_normal((2, seq, config.feature_size)).astype(np.float32)
+    ref = jax_pixel_decoder.reference_points_constant(shapes)
+    params = _noisy(jax_layer.init(jax.random.PRNGKey(0), hidden, pos, ref, shapes)['params'],
+                    seed=10, scale=0.05)
+    _, state = jax_layer.apply({'params': params}, hidden, pos, ref, shapes,
+                               capture_intermediates=True)
+    projections = {name: state['intermediates']['self_attn'][name]['__call__'][0]
+                   for name in names}
+
+    msda_out = {}
+
+    def spy(stack, msda_fn):
+        def call(*args):
+            msda_out[stack] = msda_fn(*args)
+            return msda_out[stack]
+        return call
+
+    monkeypatch.setattr(jax_pixel_decoder, 'msda', spy('jax', jax_pixel_decoder.msda))
+    monkeypatch.setattr(pixel_decoder, 'msda', spy('port', pixel_decoder.msda))
+
+    def jax_loss(outs):
+        def given(next_fun, args, kwargs, context):
+            module = context.module
+            if (context.method_name == '__call__' and module.name in names
+                    and module.parent.name == 'self_attn'):
+                return outs[module.name]
+            return next_fun(*args, **kwargs)
+        with flax.linen.intercept_methods(given):
+            jax_layer.apply({'params': params}, hidden, pos, ref, shapes)
+        return jnp.sum(msda_out['jax'].astype(jnp.float32) * cotangent)
+
+    want = jax.grad(jax_loss)(projections)
+
+    layer = pixel_decoder.EncoderLayer(config)
+    layer.load_state_dict(params_from_jax(params), strict=True)
+    leaves = {}
+    for name in names:
+        leaves[name] = torch.from_numpy(np.array(projections[name].astype(jnp.float32))
+                                        ).bfloat16().requires_grad_()
+        getattr(layer.self_attn, name).register_forward_hook(
+            lambda module, args, out, leaf=leaves[name]: leaf)
+    with torch.autocast('cpu', dtype=torch.bfloat16):
+        layer(torch.from_numpy(hidden), torch.from_numpy(pos), torch.from_numpy(ref), shapes)
+    (msda_out['port'].float() * torch.from_numpy(cotangent)).sum().backward()
+
+    for name in names:
+        got = _np(leaves[name].grad.float())
+        expected = np.array(want[name].astype(jnp.float32))
+        assert leaves[name].grad.dtype == torch.bfloat16 and got.shape == expected.shape, name
+        scale = np.abs(expected).max()
+        assert scale > 0, name
+        assert np.abs(got - expected).max() <= scale * 2.0 ** -6, name

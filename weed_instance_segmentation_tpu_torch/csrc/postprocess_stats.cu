@@ -37,11 +37,11 @@
 //     a row (lane l the pixels l, l + 32, ..., so that its shared-memory reads
 //     do not conflict) with that segment's column taps in registers; neither
 //     pass divides per pixel;
-//   - the bins come from the warp's ballots, four to a lane as a 32-bit word;
-//     where SW % 16 == 0 the band's bins, one contiguous run of the output,
-//     are gathered in the span's buffer once the span is read and leave by one
-//     bulk asynchronous copy (cp.async.bulk, the TMA engine); else by 32-bit
-//     streaming stores (st.global.cs), or bytes where SW % 4 != 0;
+//   - where SW % 16 == 0 the bins come from the warp's ballots, four to a
+//     lane as a 32-bit word, gathered in the span's buffer once the span is
+//     read; the band's bins, one contiguous run of the output, then leave by
+//     one bulk asynchronous copy (cp.async.bulk, the TMA engine). Other
+//     widths store one byte a pixel;
 //   - the sigmoid where up > 0 by ex2.approx and rcp.approx; a warp with no
 //     positive pixel in a row skips it;
 //   - deterministic sums: each block writes its band's partial sum and
@@ -62,14 +62,6 @@ namespace {
 constexpr int kMaxThreads = 512;
 constexpr int kSegment = 128;  // outputs of a row that a warp makes at once: 4 a lane
 constexpr float kLog2e = 1.4426950408889634f;
-
-// how the bins leave the block
-enum BinStores {
-  kByteStores = 0,  // one byte a pixel (SW not a multiple of 4)
-  kWordStores = 1,  // four pixels as one 32-bit streaming store (SW % 4 == 0)
-  kTileStores = 2,  // the band's bins gathered in shared memory, written by one
-                    // bulk asynchronous copy (SW % 16 == 0, bins 16-byte aligned)
-};
 
 __device__ __forceinline__ float bits_f(int v) { return __int_as_float(v); }
 
@@ -92,11 +84,13 @@ __device__ __forceinline__ float lds(uint32_t addr) {
 }
 
 // Block (map, band): stage, vertical pass, horizontal pass, band partials.
-// Shared memory: region A holds the staged span (span_rows x wm floats,
-// placed so that its 16-byte-aligned elements land on 16-byte boundaries)
-// and, once the vertical pass has read it, the band's bins (kTileStores);
-// then the band's band_rows x wm vertical values and its band_rows row taps.
-template <int kStores>
+// Shared memory, laid out by the caller: from float 0 the staged span
+// (placed so that its 16-byte-aligned elements land on 16-byte boundaries)
+// and, once the vertical pass has read it, the band's bins (kTile); from
+// float v_off the band's band_rows x wm vertical values; from float y_off its
+// band_rows row taps. kTile: the bins leave by one bulk copy a band, else by
+// one byte a pixel.
+template <bool kTile>
 __global__ void __launch_bounds__(kMaxThreads)
 upsample_stats_band_kernel(const float* __restrict__ logits,
                            const int4* __restrict__ y_taps,  // (sh,): lo, hi, w_lo, w_hi bits
@@ -105,7 +99,7 @@ upsample_stats_band_kernel(const float* __restrict__ logits,
                            int* __restrict__ cnt_part,       // (maps, bands)
                            int8_t* __restrict__ bins,        // (maps, sh, sw)
                            int hm, int wm, int sh, int sw, int band_rows, int bands,
-                           int region_a) {                   // floats of region A
+                           int v_off, int y_off) {
   extern __shared__ __align__(16) float smem[];
   const int map = blockIdx.x / bands;
   const int band = blockIdx.x - map * bands;
@@ -116,8 +110,8 @@ upsample_stats_band_kernel(const float* __restrict__ logits,
 
   float* s_in = smem;
   int8_t* s_bins = reinterpret_cast<int8_t*>(smem);
-  float* s_v = smem + region_a;                                        // band_rows * wm
-  int4* s_y = reinterpret_cast<int4*>(s_v + ((band_rows * wm + 3) & ~3));  // band_rows
+  float* s_v = smem + v_off;                          // band_rows * wm
+  int4* s_y = reinterpret_cast<int4*>(smem + y_off);  // band_rows
 
   // the taps are monotone, so the band's input rows are lo of its first row
   // to hi of its last: one contiguous run of the map
@@ -200,8 +194,8 @@ upsample_stats_band_kernel(const float* __restrict__ logits,
 
   // horizontal pass, bins and the band's sums. Step j of a segment: lane l
   // makes pixel ox0 + 32 j + l, and the warp's ballot holds the step's 32
-  // bins; lane l then writes pixels 4l .. 4l + 3, bits 4l % 32 .. + 3 of the
-  // ballot of step l / 8, as four bytes of 0 or 1.
+  // bins; with kTile lane l then writes pixels 4l .. 4l + 3, bits 4l % 32 ..
+  // + 3 of the ballot of step l / 8, as four bytes of 0 or 1.
   float sig = 0.f;
   int cnt = 0;
   const int my_step = lane / 8, my_bits = (4 * lane) % 32;
@@ -236,7 +230,7 @@ upsample_stats_band_kernel(const float* __restrict__ logits,
         for (int j = 0; j < 4; ++j)  // a pixel that is not positive adds 1 / (1 + 2^inf) = 0
           sig += rcp_approx(1.f + exp2_approx(pos[j] ? -kLog2e * up[j] : INFINITY));
       }
-      if (kStores == kByteStores) {
+      if (!kTile) {
         int8_t* out = bins + (static_cast<long long>(map) * sh + oy0 + r) * sw + ox0;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -251,18 +245,11 @@ upsample_stats_band_kernel(const float* __restrict__ logits,
         cnt += __popc(nibble);
         // bit k of the nibble to byte k (the shifted copies never overlap)
         const int word = static_cast<int>((nibble * 0x204081u) & 0x01010101u);
-        if (ox0 + 4 * lane < sw) {
-          if (kStores == kTileStores) {
-            reinterpret_cast<int*>(s_bins + r * sw + ox0)[lane] = word;
-          } else {
-            int8_t* out = bins + (static_cast<long long>(map) * sh + oy0 + r) * sw + ox0;
-            __stcs(reinterpret_cast<int*>(out) + lane, word);
-          }
-        }
+        if (ox0 + 4 * lane < sw) reinterpret_cast<int*>(s_bins + r * sw + ox0)[lane] = word;
       }
     }
   }
-  if (kStores == kTileStores) {
+  if (kTile) {
     // the band's rows are one contiguous run of the map's bins
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
@@ -298,7 +285,7 @@ upsample_stats_band_kernel(const float* __restrict__ logits,
     sig_part[blockIdx.x] = s;
     cnt_part[blockIdx.x] = c;
     // the block's shared memory must outlive the bulk copy's reads
-    if (kStores == kTileStores) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    if (kTile) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
 }
 
@@ -318,61 +305,41 @@ __global__ void band_sums_kernel(const float* __restrict__ sig_part,
   pos_cnt[map] = static_cast<float>(c);
 }
 
-// floats of region A: the staged span (3 floats of slack keep its 16-byte
-// alignment) or, later, the band's bins
-int region_a_floats(int wm, int sw, int band_rows, int span_rows, int stores) {
-  const long long span = (static_cast<long long>(span_rows) * wm + 6) & ~3LL;
-  const long long tile =
-      stores == kTileStores ? (static_cast<long long>(band_rows) * sw + 15) / 16 * 4 : 0;
-  return static_cast<int>(span > tile ? span : tile);
-}
-
-// bytes of dynamic shared memory of a block (the layout above); the kernel's
-// own static arrays take another 128 bytes
-long long shared_bytes(int wm, int band_rows, int region_a) {
-  return 4 * (region_a + ((static_cast<long long>(band_rows) * wm + 3) & ~3LL)) +
-         16LL * band_rows;
-}
-
 }  // namespace
 
 // Launches both kernels on `stream` (PyTorch's current stream); returns the
 // first CUDA error (cudaErrorInvalidValue for a layout the kernel does not
-// take) so the caller can raise. All pointers are device pointers to
-// contiguous arrays: logits (maps, hm, wm) f32; y_taps (sh, 4) and x_taps
-// (sw, 4) int32 (lo, hi, float bits of w_lo, w_hi); sig_part and cnt_part
-// (maps, bands) scratch, bands = ceil(sh / band_rows); sig_sum, pos_cnt
-// (maps,) f32; bins (maps, sh, sw) int8. span_rows bounds the input rows any
-// band reads. The bins leave by bulk copies where SW % 16 == 0 and the bins
-// are 16-byte aligned (kTileStores); otherwise by 32-bit or byte stores.
+// take, or shared memory beyond the card's limit) so the caller can raise.
+// All pointers are device pointers to contiguous arrays: logits
+// (maps, hm, wm) f32; y_taps (sh, 4) and x_taps (sw, 4) int32 (lo, hi,
+// float bits of w_lo, w_hi); sig_part and cnt_part (maps, bands) scratch,
+// bands = ceil(sh / band_rows); sig_sum, pos_cnt (maps,) f32; bins
+// (maps, sh, sw) int8. The caller lays out a block's shared memory
+// (ops/postprocess_kernel.py::shared_layout: v_off, y_off and shared_bytes,
+// sized for the most input rows a band reads) and chooses the bulk-copy
+// stores (tile_stores: SW % 16 == 0 and bins 16-byte aligned).
 extern "C" int wis_postprocess_stats(const void* logits, const void* y_taps, const void* x_taps,
                                      void* sig_part, void* cnt_part, void* sig_sum,
                                      void* pos_cnt, void* bins, int maps, int hm, int wm, int sh,
-                                     int sw, int band_rows, int span_rows, int threads,
-                                     void* stream) {
+                                     int sw, int band_rows, int tile_stores, int v_off, int y_off,
+                                     int shared_bytes, int threads, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (maps <= 0) return static_cast<int>(cudaGetLastError());
-  const int stores = sw % 4 ? kByteStores
-                     : sw % 16 == 0 && reinterpret_cast<uintptr_t>(bins) % 16 == 0
-                         ? kTileStores
-                         : kWordStores;
-  const int region_a = region_a_floats(wm, sw, band_rows, span_rows, stores);
-  const long long bytes = shared_bytes(wm, band_rows, region_a);
   const int bands = (sh + band_rows - 1) / band_rows;
-  if (bytes + 128 > kSharedLimit || threads < 32 || threads > kMaxThreads || threads % 32 ||
-      band_rows < 1 || static_cast<long long>(maps) * bands >= (1LL << 31))
+  if (threads < 32 || threads > kMaxThreads || threads % 32 || band_rows < 1 ||
+      static_cast<long long>(maps) * bands >= (1LL << 31) || v_off % 4 || y_off % 4 ||
+      (tile_stores && (sw % 16 || reinterpret_cast<uintptr_t>(bins) % 16)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = stores == kTileStores   ? upsample_stats_band_kernel<kTileStores>
-                      : stores == kWordStores ? upsample_stats_band_kernel<kWordStores>
-                                              : upsample_stats_band_kernel<kByteStores>;
+  const auto kernel =
+      tile_stores ? upsample_stats_band_kernel<true> : upsample_stats_band_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
+                                         shared_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<maps * bands, threads, bytes, s>>>(
+  kernel<<<maps * bands, threads, shared_bytes, s>>>(
       static_cast<const float*>(logits), static_cast<const int4*>(y_taps),
       static_cast<const int4*>(x_taps), static_cast<float*>(sig_part),
       static_cast<int*>(cnt_part), static_cast<int8_t*>(bins), hm, wm, sh, sw, band_rows, bands,
-      region_a);
+      v_off, y_off);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   band_sums_kernel<<<(maps + 255) / 256, 256, 0, s>>>(

@@ -98,8 +98,10 @@ class MSDeformAttn(nn.Module):
         attn = self.attention_weights(with_pos).reshape(b, seq, nh, nl * npts)
         dtype = offsets.dtype
         with torch.autocast(hidden_states.device.type, enabled=False):
-            # jax.nn.softmax's steps, each rounded to the compute dtype
-            attn = torch.exp(attn - attn.amax(dim=-1, keepdim=True))
+            # jax.nn.softmax's steps, each rounded to the compute dtype; no
+            # gradient through the max, as there (its backward then takes the
+            # same steps)
+            attn = torch.exp(attn - attn.amax(dim=-1, keepdim=True).detach())
             attn = (attn / attn.sum(dim=-1, keepdim=True)).reshape(b, seq, nh, nl, npts)
             # sampling locations = ref + offsets / [W_l, H_l]  (HF:963-969)
             normalizer = device_constant(_offset_normalizer, (spatial_shapes,),

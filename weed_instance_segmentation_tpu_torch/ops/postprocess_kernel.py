@@ -15,7 +15,8 @@ bilinear_resize_matrix``. A CUDA tensor goes to the kernel in
 ``csrc/postprocess_stats.cu`` (one block per band of output rows of a map,
 the band's input rows staged in shared memory, then a second launch that adds
 the bands' partial sums in band order; see the note there on what bounds
-it); :func:`band_plan` sizes the bands. A CPU tensor goes to
+it); :func:`band_plan` sizes the bands and :func:`shared_layout` lays out a
+block's shared memory. A CPU tensor goes to
 :func:`fused_upsample_stats_plain`, the separable matmul with the same taps.
 Kernel and plain version agree up to float32 summation order: a bin can flip
 only where the upsampled logit is within rounding of zero.
@@ -41,7 +42,9 @@ BAND_ROWS = 32
 WARPS = 6
 SEGMENT = 128  # output columns a warp makes at once (csrc/postprocess_stats.cu)
 SHARED_TARGET = 64 * 1024  # bands are halved until a block's shared memory fits this
-SHARED_LIMIT = 232448 - 128  # what a block may take beside the kernel's static arrays
+# what a block may take on sm_90 (227 KB) beside the kernel's 128 bytes of
+# static arrays (its warps' partial sums)
+SHARED_LIMIT = 232448 - 128
 
 
 def bilinear_taps(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
@@ -66,21 +69,31 @@ def tap_table(in_size: int, out_size: int) -> np.ndarray:
     return np.stack([idx[0], idx[1], w[0].view(np.int32), w[1].view(np.int32)], axis=1)
 
 
-def shared_bytes(wm: int, sw: int, band_rows: int, span_rows: int) -> int:
-    """A block's dynamic shared memory (``csrc/postprocess_stats.cu``): region
-    A, the staged input span (with 3 floats of slack to keep 16-byte
-    alignment) or, where SW % 16 == 0, the band's bins once the span is read;
-    the band's vertical values; its row taps."""
-    region_a = (span_rows * wm + 6) // 4 * 4
-    if sw % 16 == 0:
-        region_a = max(region_a, -(-band_rows * sw // 16) * 4)
-    return 4 * (region_a + (band_rows * wm + 3) // 4 * 4) + 16 * band_rows
+def tile_stores(sw: int) -> bool:
+    """Whether the bins leave a block by one bulk copy a band (each row a
+    whole number of 16-byte words); else one byte a pixel."""
+    return sw % 16 == 0
+
+
+def shared_layout(wm: int, sw: int, band_rows: int, span_rows: int) -> tuple[int, int, int]:
+    """A block's dynamic shared memory (``csrc/postprocess_stats.cu`` takes
+    it as given): from float 0 the staged input span, with 3 floats of slack
+    to keep 16-byte alignment, or, with :func:`tile_stores`, the band's bins
+    once the span is read; from float ``v_off`` the band's vertical values;
+    from float ``y_off`` its row taps, one int4 a row. Returns ``(v_off,
+    y_off, bytes)``."""
+    v_off = (span_rows * wm + 6) // 4 * 4
+    if tile_stores(sw):
+        v_off = max(v_off, -(-band_rows * sw // 16) * 4)
+    y_off = v_off + (band_rows * wm + 3) // 4 * 4
+    return v_off, y_off, 4 * y_off + 16 * band_rows
 
 
 @functools.lru_cache(maxsize=64)
-def band_plan(hm: int, wm: int, sh: int, sw: int, band_rows: int) -> tuple[int, int, int]:
+def band_plan(hm: int, wm: int, sh: int, sw: int, band_rows: int,
+              shared_target: int = SHARED_TARGET) -> tuple[int, int, int]:
     """(band_rows, bands, span_rows) of a launch: ``band_rows`` output rows
-    a block, halved while a block's shared memory exceeds ``SHARED_TARGET``;
+    a block, halved while a block's shared memory exceeds ``shared_target``;
     ``bands = ceil(sh / band_rows)``; and the most input rows a band reads
     (its first row's lo to its last row's hi: the taps are monotone). Raises
     where even a one-row band exceeds the card's shared memory (a steep
@@ -91,8 +104,8 @@ def band_plan(hm: int, wm: int, sh: int, sw: int, band_rows: int) -> tuple[int, 
         starts = np.arange(0, sh, band_rows)
         ends = np.minimum(starts + band_rows, sh) - 1
         span = int((hi[ends] - lo[starts]).max()) + 1
-        smem = shared_bytes(wm, sw, band_rows, span)
-        if band_rows == 1 or smem <= SHARED_TARGET:
+        smem = shared_layout(wm, sw, band_rows, span)[2]
+        if band_rows == 1 or smem <= shared_target:
             break
         band_rows //= 2
     if smem > SHARED_LIMIT:
@@ -102,11 +115,11 @@ def band_plan(hm: int, wm: int, sh: int, sw: int, band_rows: int) -> tuple[int, 
     return band_rows, len(starts), span
 
 
-def block_threads(sw: int) -> int:
-    """Threads a block: ``WARPS`` rounded down to whole sets of the
-    row's 128-column segments, so that every warp has a segment."""
+def block_threads(sw: int, warps: int) -> int:
+    """Threads a block: ``warps`` rounded down to whole sets of the row's
+    128-column segments, so that every warp has a segment."""
     segments = -(-sw // SEGMENT)
-    return 32 * (WARPS // segments * segments if segments <= WARPS else WARPS)
+    return 32 * (warps // segments * segments if segments <= warps else warps)
 
 
 def upsample_plain(mask_logits: torch.Tensor, score_hw: tuple[int, int]) -> torch.Tensor:
@@ -153,13 +166,21 @@ def fused_upsample_stats(mask_logits: torch.Tensor, score_hw: tuple[int, int] = 
         return fused_upsample_stats_plain(mask_logits, score_hw)
     if mask_logits.device.type != 'cuda':
         raise ValueError(f'no kernel for device {mask_logits.device}')
+    return _launch(mask_logits, score_hw, BAND_ROWS, WARPS, SHARED_TARGET)
 
+
+def _launch(mask_logits: torch.Tensor, score_hw: tuple[int, int], band_rows: int, warps: int,
+            shared_target: int):
+    """The kernel's launch on checked CUDA logits, with its tuning given:
+    ``band_rows`` and ``shared_target`` of :func:`band_plan`, ``warps`` of
+    :func:`block_threads` (``profile_postprocess_stats.py`` times them)."""
     b, q, hm, wm = mask_logits.shape
     sh, sw = score_hw
     dev = mask_logits.device
-    band_rows, bands, span_rows = band_plan(hm, wm, sh, sw, BAND_ROWS)
+    band_rows, bands, span_rows = band_plan(hm, wm, sh, sw, band_rows, shared_target)
     if b * q * bands >= 2 ** 31:
         raise ValueError(f'{b * q} maps of {bands} bands exceed the kernel\'s 32-bit grid')
+    v_off, y_off, smem = shared_layout(wm, sw, band_rows, span_rows)
     y_taps = device_constant(tap_table, (hm, sh), dev)
     x_taps = device_constant(tap_table, (wm, sw), dev)
     sig_part = torch.empty((b * q, bands), dtype=torch.float32, device=dev)
@@ -167,10 +188,11 @@ def fused_upsample_stats(mask_logits: torch.Tensor, score_hw: tuple[int, int] = 
     sig_sum = torch.empty((b, q), dtype=torch.float32, device=dev)
     pos_cnt = torch.empty((b, q), dtype=torch.float32, device=dev)
     bins = torch.empty((b, q, sh, sw), dtype=torch.int8, device=dev)
-    launch(entry_point(_LIBRARY, 'wis_postprocess_stats', 8, 8), dev, f'{_LIBRARY} kernel',
+    launch(entry_point(_LIBRARY, 'wis_postprocess_stats', 8, 11), dev, f'{_LIBRARY} kernel',
            mask_logits.data_ptr(), y_taps.data_ptr(), x_taps.data_ptr(), sig_part.data_ptr(),
            cnt_part.data_ptr(), sig_sum.data_ptr(), pos_cnt.data_ptr(), bins.data_ptr(),
-           b * q, hm, wm, sh, sw, band_rows, span_rows, block_threads(sw))
+           b * q, hm, wm, sh, sw, band_rows, int(tile_stores(sw)), v_off, y_off, smem,
+           block_threads(sw, warps))
     fused_upsample_stats.launches += 1
     return sig_sum, pos_cnt, bins
 
