@@ -39,9 +39,25 @@ Phases, each of which must pass (the script exits non-zero on any failure):
    then a ``torch.profiler`` trace of two more: the device's idle share,
    device time by kernel, and the split into the train step's own ranges
    (forward, criterion with the host matching, backward, optimizer);
-6. tiny-test in float32 on the card against the same model on the CPU (the
-   plain path): the serving function, and one train step with the same
-   random draws.
+6. evaluation: Swin-L with random seeded weights saved by ``save_pretrained``
+   into a model directory, a synthetic ``.npz`` ``Test`` cache of 8 images
+   (800² pixels from 1024² originals, 10 instances each), then
+   ``engine.test.test_model`` in bf16 at batch 2 and one more
+   ``test_with_metrics`` at threshold 0.0 over the same cache (every
+   covering slot reaches the IoU product and the matching); each run's
+   img/s, peak memory, the split of its time (ground truth, forward,
+   post-process, host reformat, IoU product, matching, other) and the
+   launches of each kernel, which must be 24 window-attention and 9
+   masked-attention forwards a batch and one post-process an image; then
+   one batch's forward alone (event-timed, and its device-busy time by
+   kernel) and one image's post-process at the 1024² target (device time,
+   the kernel's share);
+7. tiny-test in float32 on the card against the same model on the CPU (the
+   plain path): the serving function, one train step with the same random
+   draws, and ``test_with_metrics`` at threshold 0.0 over a small cache
+   (the metric dicts equal, or within 0.01 where bins flipped at zero
+   crossings, which are printed); and ``mask_iou_matrix`` on 100 x 1024²
+   against 20 x 1024² masks, the same bits on the card and the CPU.
 
 The last lines are a JSON summary of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -50,6 +66,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import functools
 import json
@@ -66,13 +83,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from weed_instance_segmentation_tpu_torch import config
+from weed_instance_segmentation_tpu_torch.datasets.crop_weed import definitions as crop_weed
 from weed_instance_segmentation_tpu_torch.datasets.dataset_utils import (
-    TRAIN_SAMPLE_KEYS, PreprocessedDataset, make_train_collate, process_and_save,
+    TRAIN_SAMPLE_KEYS, PreprocessedDataset, collate_fn, make_train_collate, process_and_save,
 )
 from weed_instance_segmentation_tpu_torch.datasets.loader import DataLoader, device_batches, to_device
+from weed_instance_segmentation_tpu_torch.engine import metrics
+from weed_instance_segmentation_tpu_torch.engine import test as engine_test
+from weed_instance_segmentation_tpu_torch.engine.checkpoint import save_pretrained
 from weed_instance_segmentation_tpu_torch.engine.export import make_serving_fn
-from weed_instance_segmentation_tpu_torch.engine.model_utils import build_model
-from weed_instance_segmentation_tpu_torch.engine.steps import make_optimizer, make_train_step
+from weed_instance_segmentation_tpu_torch.engine.model_utils import build_model, load_model
+from weed_instance_segmentation_tpu_torch.engine.steps import (
+    make_forward_fn, make_optimizer, make_train_step,
+)
+from weed_instance_segmentation_tpu_torch.evaluation import mean_ap
 from weed_instance_segmentation_tpu_torch.losses.criterion import PointDraws
 from weed_instance_segmentation_tpu_torch.models import transformer_decoder
 from weed_instance_segmentation_tpu_torch.models.swin import shifted_window_attn_mask
@@ -88,7 +113,9 @@ from weed_instance_segmentation_tpu_torch.ops.window_attention import (
     window_attention, window_attention_plain,
 )
 from weed_instance_segmentation_tpu_torch.processing.fused import fused_preprocess
-from weed_instance_segmentation_tpu_torch.processing.postprocess import SCORE_RESOLUTION
+from weed_instance_segmentation_tpu_torch.processing.postprocess import (
+    SCORE_RESOLUTION, post_process_instance_arrays,
+)
 
 LIBRARIES = ('postprocess_stats', 'window_attention', 'masked_attention')
 CSRC = 'weed_instance_segmentation_tpu_torch/csrc/'
@@ -104,6 +131,10 @@ SERVING_BATCH, SERVING_IN, SERVING_HW, REQUESTS = 4, 1024, 800, 3
 TRAIN_BATCH, TRAIN_HW, TRAIN_INSTANCES, TRAIN_LABELS = 2, 800, 10, 5
 WARMUP_STEPS, TIMED_STEPS, ACCUMULATION, LEARNING_RATE = 2, 6, 2, 5e-5
 STEP_RANGES = ('forward', 'criterion', 'backward', 'optimizer')  # engine/steps.py
+EVAL_IMAGES, EVAL_BATCH, EVAL_ORIGINAL, EVAL_INSTANCES = 8, 2, 1024, 10
+EVAL_MODEL_ID = 'mask2former_fine_tuned/latest/best_model/'
+EVAL_STAGES = ('ground truth', 'forward', 'post-process', 'host reformat', 'IoU product',
+               'matching', 'other')
 TIMED_RUNS = 25
 # H100 SXM published peaks (dense): HBM bytes/s and FLOP/s by input type
 HBM_BYTES_PER_S = 3.35e12
@@ -764,6 +795,307 @@ def phase_training(dev: torch.device, cache_dir: str) -> dict:
     return launches
 
 
+class _SynthEval:
+    """Test samples as a user's cache holds them: 800² float pixels from
+    1024² originals, whose map holds 10 rectangular instances (ids 1-10, a
+    later one may cover an earlier one) of 5 labels."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        r = np.random.default_rng(100 + i)
+        original = np.zeros((EVAL_ORIGINAL, EVAL_ORIGINAL), np.int32)
+        for j in range(EVAL_INSTANCES):
+            h, w = r.integers(EVAL_ORIGINAL // 32, EVAL_ORIGINAL // 4, size=2)
+            y, x = r.integers(0, EVAL_ORIGINAL - h), r.integers(0, EVAL_ORIGINAL - w)
+            original[y:y + h, x:x + w] = j + 1
+        ys = nearest_indices(EVAL_ORIGINAL, TRAIN_HW)
+        small = original[ys][:, ys]
+        labels = r.integers(0, TRAIN_LABELS, size=EVAL_INSTANCES)
+        return {'pixel_values': r.standard_normal((3, TRAIN_HW, TRAIN_HW)).astype(np.float32),
+                'mask_labels': np.stack([small == j + 1 for j in range(EVAL_INSTANCES)]
+                                        ).astype(np.uint8),
+                'class_labels': labels,
+                'target_size': (EVAL_ORIGINAL, EVAL_ORIGINAL),
+                'original_map': original,
+                'id_to_semantic': {j + 1: int(labels[j]) for j in range(EVAL_INSTANCES)},
+                'file_name': f'test_{i:04d}.png'}
+
+
+class _EvalTimer:
+    """Wall seconds of the evaluation's stages, each call ended by a
+    synchronise: the functions of ``engine/metrics.py`` and
+    ``evaluation/mean_ap.py`` are wrapped while a run lasts (``patched``)."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self.seconds = collections.Counter()
+        self.calls = collections.Counter()
+
+    def wrap(self, stage: str, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize(self.dev)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize(self.dev)
+            self.seconds[stage] += time.perf_counter() - t0
+            self.calls[stage] += 1
+            return out
+        return timed
+
+    @contextlib.contextmanager
+    def patched(self):
+        cls = mean_ap.MeanAveragePrecision
+        saved = [(engine_test, 'make_forward_fn'), (engine_test, 'test_with_metrics'),
+                 (metrics, 'targets_from_original_maps'),
+                 (metrics, 'post_process_instance_segmentation'),
+                 (metrics, 'predictions_from_postprocess'), (mean_ap, 'mask_iou_matrix'),
+                 (cls, 'update'), (cls, 'compute')]
+        saved = [(obj, name, getattr(obj, name)) for obj, name in saved]
+        engine_test.make_forward_fn = lambda model: self.wrap('forward', make_forward_fn(model))
+        engine_test.test_with_metrics = self.wrap('eval', metrics.test_with_metrics)
+        metrics.targets_from_original_maps = self.wrap(
+            'ground truth', metrics.targets_from_original_maps)
+        metrics.post_process_instance_segmentation = self.wrap(
+            'post-process', metrics.post_process_instance_segmentation)
+        metrics.predictions_from_postprocess = self.wrap(
+            'host reformat', metrics.predictions_from_postprocess)
+        mean_ap.mask_iou_matrix = self.wrap('IoU product', mean_ap.mask_iou_matrix)
+        cls.update = self.wrap('metric', cls.update)
+        cls.compute = self.wrap('metric', cls.compute)
+        try:
+            yield self
+        finally:
+            for obj, name, value in saved:
+                setattr(obj, name, value)
+
+    def split(self) -> dict:
+        """Seconds by stage within ``test_with_metrics``; ``other`` is what
+        no stage holds (the pixels' copy to the card, waits on the loader)."""
+        s = dict(self.seconds)
+        s['matching'] = s.pop('metric', 0.0) - s.get('IoU product', 0.0)
+        total = s.pop('eval', 0.0)
+        s['other'] = total - sum(s.get(stage, 0.0) for stage in EVAL_STAGES[:-1])
+        return {stage: s.get(stage, 0.0) for stage in EVAL_STAGES}
+
+
+@contextlib.contextmanager
+def _eval_config(root: str):
+    """The config an ``engine.test`` run reads, pointed at ``root``: bf16,
+    batch 2, a crop_weed-style ``Processed/Test`` cache."""
+    values = {'MODELS_OUTPUT_DIR': os.path.join(root, 'models') + '/',
+              'DATASET_LIST': ['crop_weed'], 'BATCH_SIZE': EVAL_BATCH,
+              'COMPUTE_DTYPE': 'bfloat16'}
+    saved = {name: getattr(config, name) for name in values}
+    saved_dir = crop_weed.PROCESSED_DIR
+    for name, value in values.items():
+        setattr(config, name, value)
+    crop_weed.PROCESSED_DIR = os.path.join(root, 'Processed') + '/'
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(config, name, value)
+        crop_weed.PROCESSED_DIR = saved_dir
+
+
+def _check_metric_dict(result: dict, what: str) -> None:
+    keys = {'map', 'map_50', 'map_75', 'map_small', 'map_medium', 'map_large', 'mar_1',
+            'mar_10', 'mar_100', 'mar_small', 'mar_medium', 'mar_large', 'classes',
+            'map_per_class', 'mar_100_per_class'}
+    check(result is not None and set(result) == keys, f'{what}: metric keys {result}')
+    for key in keys - {'classes'}:
+        v = float(result[key])
+        check(math.isfinite(v) and (v == -1.0 or 0.0 <= v <= 1.0), f'{what}: {key} = {v}')
+    check(float(result['map']) >= 0.0, f'{what}: map {result["map"]} with ground truth present')
+
+
+def phase_eval(dev: torch.device, root: str) -> dict:
+    """Swin-L evaluation through ``engine.test`` (bf16, batch 2, threshold
+    0.5) and once more at threshold 0.0, from a saved model directory and a
+    synthetic Test cache."""
+    t0 = time.perf_counter()
+    process_and_save(_SynthEval(EVAL_IMAGES), os.path.join(root, 'Processed', 'Test'))
+    model = build_model('swin-large', num_labels=TRAIN_LABELS, device=dev, seed=0)
+    run_dir = os.path.join(root, 'models', 'mask2former_fine_tuned', '2026-01-01_00-00-00',
+                           'best_model')
+    save_pretrained(run_dir, model.state_dict(), model.config)
+    cfg = model.config
+    del model
+    torch.cuda.empty_cache()
+    log(f'eval: Test cache of {EVAL_IMAGES} images and a swin-large model directory '
+        f'({os.path.getsize(os.path.join(run_dir, "params.npz")) / 2**20:.0f} MiB params.npz) '
+        f'written in {time.perf_counter() - t0:.1f} s')
+
+    n_batches = -(-EVAL_IMAGES // EVAL_BATCH)
+    expected = {'fused_upsample_stats': EVAL_IMAGES,
+                'window_attention_fwd': n_batches * sum(cfg.backbone_config.depths),
+                'masked_attention_fwd': n_batches * (cfg.decoder_layers - 1),
+                'window_attention_bwd': 0, 'masked_attention_bwd': 0}
+    launches = None
+    with _eval_config(root):
+        for run, threshold in (('engine.test', 0.5), ('test_with_metrics', 0.0)):
+            timer = _EvalTimer(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            with timer.patched():
+                if run == 'engine.test':
+                    result = engine_test.test_model(EVAL_MODEL_ID, device=dev)
+                else:
+                    model, _ = load_model(EVAL_MODEL_ID, dev)
+                    dataset = PreprocessedDataset(os.path.join(root, 'Processed', 'Test'))
+                    result = engine_test.test_with_metrics(
+                        engine_test.make_forward_fn(model),
+                        DataLoader(dataset, EVAL_BATCH, collate_fn), threshold, dev)
+            wall = time.perf_counter() - t0
+            run_launches = counts()
+            _check_metric_dict(result, run)
+            for name, n in expected.items():
+                check(run_launches[name] == n,
+                      f'eval {run} launched {name} {run_launches[name]} times, not {n}')
+            split = timer.split()
+            eval_s = timer.seconds['eval']
+            log(f'eval {run} (threshold {threshold}) swin-large {TRAIN_HW}x{TRAIN_HW} '
+                f'b{EVAL_BATCH} bf16, {EVAL_IMAGES} images: {EVAL_IMAGES / eval_s:.3f} img/s over '
+                f'{1e3 * eval_s:.1f} ms in test_with_metrics ({1e3 * wall:.1f} ms with loading), '
+                f'peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, '
+                f'launches {run_launches}')
+            log('  split ms: ' + ', '.join(f'{k} {1e3 * v:.1f}' for k, v in split.items())
+                + f' (IoU products {timer.calls["IoU product"]}); map {float(result["map"]):.4f}, '
+                f'map_50 {float(result["map_50"]):.4f}, mar_100 {float(result["mar_100"]):.4f}')
+            if threshold == 0.0:
+                check(timer.calls['IoU product'] > 0, 'no IoU product at threshold 0.0')
+            launches = launches or run_launches
+    # the forward of one batch alone: event-timed, and its device-busy time
+    forward = make_forward_fn(model)
+    pixels = torch.from_numpy(collate_fn([dataset[i] for i in range(EVAL_BATCH)])
+                              ['pixel_values']).to(dev)
+    event_ms = statistics.median(time_ms(lambda: forward(pixels)) for _ in range(5))
+    split = device_split(lambda: forward(pixels), runs=3)
+    log(f'eval forward of one batch ({tuple(pixels.shape)}, bf16): {event_ms:.1f} ms '
+        f'(median of 5, CUDA events), device busy {sum(split.values()):.1f} ms; top kernels: '
+        + '; '.join(f'{kernel_name(k)[:40]} {ms:.2f} ms' for k, ms in split.most_common(6)))
+    del model, forward, pixels
+    torch.cuda.empty_cache()
+
+    # one image's post-process at the eval's target size, on the device
+    g = torch.Generator(device=dev).manual_seed(12)
+    class_logits = torch.randn((1, cfg.num_queries, TRAIN_LABELS + 1), generator=g, device=dev)
+    mask_logits = torch.randn((1, cfg.num_queries, TRAIN_HW // 4, TRAIN_HW // 4), generator=g,
+                              device=dev) * 2
+    split = device_split(lambda: post_process_instance_arrays(
+        class_logits, mask_logits, (EVAL_ORIGINAL, EVAL_ORIGINAL), 0.5, with_masks=False))
+    kernel_ms = sum(ms for key, ms in split.items() if 'band' in kernel_name(key))
+    log(f'post-process of one image ({tuple(mask_logits.shape)} -> {EVAL_ORIGINAL}² target): '
+        f'device busy {sum(split.values()):.4f} ms, of which the kernel {kernel_ms:.4f} ms; '
+        'top launches: ' + '; '.join(f'{kernel_name(k)[:40]} {1e3 * ms:.1f} µs'
+                                     for k, ms in split.most_common(6)))
+    return launches
+
+
+def _tiny_eval_samples(model, n: int) -> list:
+    """Cache samples whose ground truth is the tiny model's own kept
+    segments at threshold 0 (every other one moved by 3 pixels, every third
+    given another label), so the metric lies away from 0 and 1."""
+    samples = []
+    for i in range(n):
+        rng = np.random.default_rng(200 + i)
+        pixels = rng.standard_normal((3, 64, 96)).astype(np.float32)
+        target = (128, 192)
+        with torch.no_grad():
+            out = model(torch.from_numpy(pixels[None]))
+        pred = metrics.post_process_instance_segmentation(out, threshold=0.0,
+                                                          target_sizes=[target])[0]
+        seg = pred['segmentation'].astype(np.int32)
+        original = np.where(seg >= 0, seg + 1, 0).astype(np.int32)
+        mapping = {}
+        for j, info in enumerate(pred['segments_info']):
+            uid = info['id'] + 1
+            if j % 2:
+                moved = np.roll(original == uid, 3, axis=1)
+                original[original == uid] = 0
+                original[moved & (original == 0)] = uid
+            mapping[uid] = info['label_id'] if j % 3 else (info['label_id'] + 1) % 3
+        samples.append({'pixel_values': pixels, 'mask_labels': np.zeros((0, 64, 96), np.uint8),
+                        'class_labels': np.zeros(0, np.int64), 'target_size': target,
+                        'original_map': original, 'id_to_semantic': mapping,
+                        'file_name': f'tiny_{i:03d}.png'})
+    return samples
+
+
+def phase_tiny_eval(dev: torch.device, root: str) -> None:
+    """tiny-test f32: ``test_with_metrics`` at threshold 0.0 on the card and
+    on the CPU over one cache; then ``mask_iou_matrix`` on 100 x 1024²
+    against 20 x 1024² masks on both."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu_model = build_model('tiny-test', num_labels=3, device='cpu', seed=0)
+    with torch.no_grad():  # favour class 0, so that the slots' scores spread
+        cpu_model.class_predictor.bias.copy_(torch.tensor([2.0, 0.0, -1.0, 0.0]))
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    cache = os.path.join(root, 'tiny_test_cache')
+    process_and_save(_tiny_eval_samples(cpu_model, 5), cache)
+    results, maps = [], []
+    post_process = metrics.post_process_instance_segmentation
+    for model, device in ((cpu_model, torch.device('cpu')), (gpu_model, dev)):
+        seen = []
+
+        def recording(*args, **kwargs):
+            out = post_process(*args, **kwargs)
+            seen.extend(p['segmentation'] for p in out)
+            return out
+
+        metrics.post_process_instance_segmentation = recording
+        try:
+            results.append(metrics.test_with_metrics(
+                make_forward_fn(model), DataLoader(PreprocessedDataset(cache), 2, collate_fn),
+                0.0, device))
+        finally:
+            metrics.post_process_instance_segmentation = post_process
+        maps.append(seen)
+    want, got = results
+    flips = sum(int((a != b).sum()) for a, b in zip(*maps))
+    diffs = {k: float(np.abs(np.asarray(got[k], np.float64) - np.asarray(want[k], np.float64)
+                              ).max()) for k in want}
+    check(got.keys() == want.keys() and float(want['map']) > 0.0, f'tiny eval keys/map {want}')
+    if flips == 0:
+        check(all(v == 0.0 for v in diffs.values()), f'tiny eval card vs CPU differ: {diffs}')
+    else:
+        check(all(v <= 0.01 for v in diffs.values()), f'tiny eval beyond 0.01: {diffs}')
+    log(f'tiny-test f32 eval at threshold 0.0, card vs CPU: map {float(got["map"]):.6f} vs '
+        f'{float(want["map"]):.6f}, {flips} id-map pixels differ (bin flips at zero '
+        f'crossings), largest metric difference {max(diffs.values()):.3e}')
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    preds = torch.rand((100, EVAL_ORIGINAL, EVAL_ORIGINAL), generator=g, device=dev) < 0.3
+    gts = torch.rand((20, EVAL_ORIGINAL, EVAL_ORIGINAL), generator=g, device=dev) < 0.5
+    preds_np, gts_np = preds.cpu().numpy(), gts.cpu().numpy()
+    del preds, gts
+    t0 = time.perf_counter()
+    on_card = mean_ap.mask_iou_matrix(preds_np, gts_np, device=dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = mean_ap.mask_iou_matrix(preds_np, gts_np, device='cpu')
+    cpu_s = time.perf_counter() - t0
+    check(all(np.array_equal(a, b) for a, b in zip(on_card, on_cpu)),
+          'mask_iou_matrix: the card and the CPU give different bits')
+    a = preds_np.reshape(100, -1).astype(np.float32)
+    b = gts_np.reshape(20, -1).astype(np.float32)
+    dev_a, dev_b = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    product_ms = timed_in_turns({'product': lambda: dev_a @ dev_b.T}, runs=10)['product']
+    product_bound = bound((a.size + b.size) * 4 + 100 * 20 * 4, 2 * 100 * 20 * a.shape[1],
+                          torch.float32)
+    log(f'mask_iou_matrix 100 x 1024² against 20 x 1024²: the same bits on the card and the '
+        f'CPU; {1e3 * card_s:.1f} ms on the card with the host copies, {1e3 * cpu_s:.1f} ms on '
+        f'the CPU; the f32 product alone {product_ms:.4f} ms on the card (bound '
+        f'{product_bound["bound_ms"]:.4f} ms, {product_bound["bound_by"]})')
+
+
 def _tiny_batch(seed: int) -> dict:
     rng = np.random.default_rng(seed)
     samples = []
@@ -891,11 +1223,17 @@ def main() -> int:
     serving = phase_serving(dev)
     with tempfile.TemporaryDirectory() as cache_dir:
         training = phase_training(dev, cache_dir)
+    with tempfile.TemporaryDirectory() as root:
+        evaluation = phase_eval(dev, root)
     for name in ('window_attention_fwd', 'window_attention_bwd', 'masked_attention_fwd',
                  'masked_attention_bwd'):
         check(training[name] > 0, f'the training run never launched {name}')
     check(serving['fused_upsample_stats'] > 0, 'the serving run never launched the post-process')
+    for name in ('fused_upsample_stats', 'window_attention_fwd', 'masked_attention_fwd'):
+        check(evaluation[name] > 0, f'the eval run never launched {name}')
     phase_tiny_parity(dev)
+    with tempfile.TemporaryDirectory() as root:
+        phase_tiny_eval(dev, root)
 
     path = {'fused_upsample_stats': serving}
     kernels = []
@@ -903,7 +1241,8 @@ def main() -> int:
         launches = path.get(name, training)[name]
         kernels.append({'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
                         'launches': launches,
-                        'launches_by_path': {'serving': serving[name], 'training': training[name]},
+                        'launches_by_path': {'serving': serving[name], 'training': training[name],
+                                             'eval': evaluation[name]},
                         **timing[name]})
     print(json.dumps({'kernels': kernels}))
     print(card_line())

@@ -16,6 +16,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from weed_instance_segmentation_tpu_torch.evaluation.mean_ap import mask_iou_matrix
 from weed_instance_segmentation_tpu_torch.models.swin import shifted_window_attn_mask
 from weed_instance_segmentation_tpu_torch.ops.masked_attention import (
     BLOCKS_PER_SM, KEY_TILE, ROW_TILE, key_chunks, masked_attention, masked_attention_plain,
@@ -24,10 +25,15 @@ from weed_instance_segmentation_tpu_torch.ops.postprocess_kernel import (
     BAND_ROWS, SHARED_LIMIT, band_plan, bilinear_taps, fused_upsample_stats,
     fused_upsample_stats_plain, shared_layout, tap_table, upsample_plain,
 )
-from weed_instance_segmentation_tpu_torch.ops.resize import bilinear_resize_matrix
+from weed_instance_segmentation_tpu_torch.ops.resize import (
+    bilinear_resize_matrix, nearest_indices,
+)
 from weed_instance_segmentation_tpu_torch.ops import window_attention as window_ops
 from weed_instance_segmentation_tpu_torch.ops.window_attention import (
     BACKWARD_MAX_TOKENS, window_attention, window_attention_plain, window_runs,
+)
+from weed_instance_segmentation_tpu_torch.processing.postprocess import (
+    post_process_instance_segmentation,
 )
 
 
@@ -223,6 +229,55 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, score_hw):
     flips_per_map = flips.sum(dim=(-1, -2)).float()
     assert ((cnt - p_cnt).abs() <= flips_per_map).all()
     assert ((sig - p_sig).abs() <= 1e-5 * p_sig.abs() + 0.5001 * flips_per_map).all()
+
+
+@pytest.mark.cuda
+def test_eval_post_process_of_one_image_on_card(cuda_device):
+    """The evaluation path's post-process: one image (B 1), 200 queries,
+    a non-square target (300 x 500), on the card (one kernel launch) and on
+    the CPU (the plain version). Segment ids and labels equal, scores within
+    1e-5; id maps equal except where an upsampled logit is within 1e-5 of
+    zero."""
+    g = torch.Generator().manual_seed(7)
+    class_logits = torch.randn((1, 200, 4), generator=g) * 2
+    class_logits[:, :, 0] += 3.0  # a few slots above the threshold
+    mask_logits = torch.randn((1, 200, 50, 50), generator=g) * 2
+
+    class Out:
+        def __init__(self, cls, msk):
+            self.class_queries_logits, self.masks_queries_logits = cls, msk
+
+    launches = fused_upsample_stats.launches
+    got = post_process_instance_segmentation(
+        Out(class_logits.to(cuda_device), mask_logits.to(cuda_device)), threshold=0.5,
+        target_sizes=[(300, 500)])[0]
+    assert fused_upsample_stats.launches == launches + 1
+    want = post_process_instance_segmentation(Out(class_logits, mask_logits), threshold=0.5,
+                                              target_sizes=[(300, 500)])[0]
+    assert want['segments_info'], 'no segment kept'
+    assert [(s['id'], s['label_id']) for s in got['segments_info']] == \
+        [(s['id'], s['label_id']) for s in want['segments_info']]
+    for a, b in zip(got['segments_info'], want['segments_info']):
+        assert abs(a['score'] - b['score']) <= 1e-5
+    up = upsample_plain(mask_logits, (384, 384))[0]
+    near = (up.abs() <= 1e-5).any(dim=0).numpy()
+    near = near[nearest_indices(384, 300)][:, nearest_indices(384, 500)]
+    differ = got['segmentation'] != want['segmentation']
+    assert got['segmentation'].shape == (300, 500) and not differ[~near].any()
+
+
+@pytest.mark.cuda
+def test_mask_iou_matrix_on_card_equals_cpu(cuda_device):
+    """The intersection product on the card gives the CPU's bits: 0/1
+    inputs, float32 sums of integers below 2**24."""
+    rng = np.random.default_rng(8)
+    preds = rng.random((40, 256, 320)) < 0.4
+    gts = rng.random((12, 256, 320)) < 0.6
+    got = mask_iou_matrix(preds, gts, device=cuda_device)
+    want = mask_iou_matrix(preds, gts, device='cpu')
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == np.float64
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.cuda

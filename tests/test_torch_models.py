@@ -124,6 +124,115 @@ def test_msda_matches_reference():
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-5)
 
 
+def _msda_inputs(rng, b, heads, dim, q, shapes, points=4, reach=0.0):
+    total = sum(h * w for h, w in shapes)
+    value = rng.standard_normal((b, total, heads, dim)).astype(np.float32)
+    locs = (rng.random((b, q, heads, len(shapes), points, 2)) * (1 + 2 * reach) - reach
+            ).astype(np.float32)
+    logits = rng.standard_normal((b, q, heads, len(shapes) * points))
+    weights = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    weights = weights.reshape(b, q, heads, len(shapes), points).astype(np.float32)
+    return value, locs, weights
+
+
+def test_msda_gradients_match_jax():
+    """float32: the port's backward (``autograd.Function``: the value
+    gradient summed by ``index_add_``, the location and weight gradients by
+    autograd of the fused form) against ``jax.grad`` through the JAX
+    package's custom VJP, with locations past [0, 1]; atol 1e-5."""
+    from weed_instance_segmentation_tpu.ops.msda_select import msda as jax_msda
+
+    shapes = ((6, 8), (3, 4), (2, 2))
+    value, locs, weights = _msda_inputs(np.random.default_rng(12), 2, 2, 8, 11, shapes,
+                                        reach=0.2)
+    cot = np.random.default_rng(13).standard_normal((2, 11, 16)).astype(np.float32)
+    want = jax.grad(lambda *a: jnp.sum(jax_msda(a[0], shapes, a[1], a[2]) * cot),
+                    argnums=(0, 1, 2))(*map(jnp.asarray, (value, locs, weights)))
+    ins = [torch.from_numpy(a).requires_grad_() for a in (value, locs, weights)]
+    (msda(ins[0], shapes, ins[1], ins[2]) * torch.from_numpy(cot)).sum().backward()
+    for name, t, w in zip(('value', 'locations', 'weights'), ins, want):
+        np.testing.assert_allclose(_np(t.grad), np.asarray(w), atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize('needs', ['all', 'value-only', 'locations-only'])
+def test_msda_forward_bits_unchanged_under_autograd(needs):
+    """The ``autograd.Function``'s forward is the fused form: at bf16 its
+    output equals, bit for bit, the no-grad call and the JAX package's
+    ``msda_fused``; and its location and weight gradients equal, bit for
+    bit, autograd through the fused form with the values held constant."""
+    from weed_instance_segmentation_tpu.ops.msda_fused import msda_fused
+    from weed_instance_segmentation_tpu_torch.ops.deformable_attention import _msda_fused
+
+    shapes = ((4, 6), (2, 3), (1, 2))
+    value, locs, weights = (torch.from_numpy(a).bfloat16() for a in _msda_inputs(
+        np.random.default_rng(14), 2, 2, 8, 9, shapes, reach=0.1))
+    grads = {'all': (True, True, True), 'value-only': (True, False, False),
+             'locations-only': (False, True, False)}[needs]
+    ins = [t.clone().requires_grad_(r) for t, r in zip((value, locs, weights), grads)]
+    out = msda(ins[0], shapes, ins[1], ins[2])
+    with torch.no_grad():
+        plain = msda(value, shapes, locs, weights)
+    as_jax = lambda t: jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)  # noqa: E731
+    want = msda_fused(as_jax(value), shapes, as_jax(locs), as_jax(weights))
+    assert out.dtype == torch.bfloat16 and out.grad_fn is not None
+    assert torch.equal(out, plain)
+    np.testing.assert_array_equal(_np(out.float()), np.asarray(want.astype(jnp.float32)))
+
+    cot = torch.from_numpy(np.random.default_rng(15).standard_normal(out.shape)).bfloat16()
+    out.backward(cot)
+    ref = [value.detach()] + [t.clone().requires_grad_(r) for t, r in
+                              zip((locs, weights), grads[1:])]
+    if any(grads[1:]):
+        _msda_fused(ref[0], shapes, ref[1], ref[2]).backward(cot)
+    for t, r, needed in zip(ins[1:], ref[1:], grads[1:]):
+        assert (t.grad is None) == (not needed)
+        if needed:
+            assert torch.equal(t.grad, r.grad)
+    assert (ins[0].grad is not None) == grads[0]
+
+
+def test_msda_value_grad_sums_in_float32_at_bf16():
+    """The bf16 value gradient at the pixel decoder's level shapes for an
+    800² input ((25, 25), (50, 50), (100, 100); 8 heads, D 32, 4 points,
+    Q = L = 13125), against the float64 gradient of the same inputs: its
+    largest error is at most 1.25x that of the JAX package's
+    ``msda_value_grad_einsum``. Both sum in float32. Measured at this seed:
+    0.351 % of the largest entry for the port, 0.404 % for the JAX package;
+    autograd through the fused form, which adds every tap into a bf16
+    table, gave 1.774 % (4.4x)."""
+    from weed_instance_segmentation_tpu.ops.msda_transpose import msda_value_grad_einsum
+    from weed_instance_segmentation_tpu_torch.ops.deformable_attention import _taps
+
+    shapes = ((25, 25), (50, 50), (100, 100))
+    b, heads, dim, points = 1, 8, 32, 4
+    total = sum(h * w for h, w in shapes)
+    rng = np.random.default_rng(0)
+    value, locs, weights = (torch.from_numpy(a).bfloat16() for a in _msda_inputs(
+        rng, b, heads, dim, total, shapes, points))
+    cot = torch.from_numpy(rng.standard_normal((b, total, heads * dim)).astype(np.float32)
+                           ).bfloat16()
+
+    exact = torch.zeros((b * heads * total, dim), dtype=torch.float64)
+    for idx, wgt in _taps(shapes, total, b, heads, locs.double(), weights.double(),
+                          torch.float64):
+        taps = cot.double().reshape(b, total, heads, 1, dim) * wgt[..., None]
+        exact.index_add_(0, idx.reshape(-1), taps.reshape(-1, dim))
+    exact = exact.reshape(b, heads, total, dim).transpose(1, 2)
+    scale = exact.abs().max().item()
+
+    leaf = value.clone().requires_grad_()
+    msda(leaf, shapes, locs, weights).backward(cot)
+    assert leaf.grad.dtype == torch.bfloat16
+    port_err = (leaf.grad.double() - exact).abs().max().item() / scale
+
+    as_jax = lambda t: jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)  # noqa: E731
+    jax_grad = msda_value_grad_einsum(shapes, as_jax(locs), as_jax(weights), as_jax(cot),
+                                      jnp.bfloat16)
+    jax_err = np.abs(np.asarray(jax_grad.astype(jnp.float32), np.float64)
+                     - exact.numpy()).max() / scale
+    assert port_err <= 1.25 * jax_err, (port_err, jax_err)
+
+
 def test_resize_matches_jax():
     x = np.random.default_rng(5).standard_normal((2, 3, 7, 10)).astype(np.float32)
     for hw in ((14, 20), (5, 4), (7, 10)):
@@ -267,13 +376,18 @@ def test_msda_input_grads_near_jax_at_bf16(monkeypatch):
     the gradients that reach the value, sampling-offset and attention-weight
     projections' outputs from one cotangent on the MSDA output. Both stacks
     start from the same projection outputs (the JAX package's). The routes
-    differ: the JAX package's custom VJP (``ops/msda_select.py``) against
-    autograd through the port's fused form, and each stack's own rounding of
-    the softmax's backward (both stop the gradient at the max). So most
-    entries differ in their last bits (59-65 % here); at this seed the
-    largest gap is 1.15 % of the largest gradient for the values, 0.74 %
-    for the offsets and 0.78 % for the attention logits, and the bound is
-    two bf16 ulps of the largest gradient (2**-6 of it)."""
+    differ: both split the backward as the JAX package's custom VJP
+    (``ops/msda_select.py``) does, locations and weights by differentiating
+    the fused form with the values held constant, but the JAX value gradient
+    is a dense einsum (``ops/msda_transpose.py``) and the port's a float32
+    ``index_add_`` of the rounded taps; and each stack rounds the softmax's
+    backward its own way (both stop the gradient at the max). So most
+    entries differ in their last bits (50-65 % here); at this seed the
+    largest gap is 0.38 % of the largest gradient for the values (1.15 %
+    while the port summed the value gradient in bf16), 0.74 % for the
+    offsets and 0.78 % for the attention logits. The bound is one bf16 ulp
+    of the largest gradient (2**-7 of it) for the values and two (2**-6)
+    for the offsets and the attention logits."""
     names = ('value_proj', 'sampling_offsets', 'attention_weights')
     config = Mask2FormerConfig.tiny_test(num_labels=3)
     jax_layer = jax_pixel_decoder.EncoderLayer(
@@ -335,4 +449,5 @@ def test_msda_input_grads_near_jax_at_bf16(monkeypatch):
         assert leaves[name].grad.dtype == torch.bfloat16 and got.shape == expected.shape, name
         scale = np.abs(expected).max()
         assert scale > 0, name
-        assert np.abs(got - expected).max() <= scale * 2.0 ** -6, name
+        bound = 2.0 ** -7 if name == 'value_proj' else 2.0 ** -6
+        assert np.abs(got - expected).max() <= scale * bound, name

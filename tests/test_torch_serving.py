@@ -116,7 +116,7 @@ def test_build_model_runs_on_the_card_unless_asked(monkeypatch):
 
 _BLOCKED_IMPORTS = r'''
 import importlib, pkgutil, sys
-for name in ('jax', 'jaxlib', 'flax', 'optax', 'PIL', 'transformers',
+for name in ('jax', 'jaxlib', 'flax', 'optax', 'PIL', 'transformers', 'safetensors',
              'weed_instance_segmentation_tpu'):
     sys.modules[name] = None  # any import of these now raises ImportError
 import numpy as np, torch
@@ -139,13 +139,38 @@ sample = {'pixel_values': np.zeros((3, 64, 64), np.float32),
           'mask_labels': np.ones((1, 64, 64), np.uint8), 'class_labels': np.zeros(1, np.int64)}
 loss = step(to_device(make_train_collate((64, 64), 2, 1)([sample]), 'cpu'))
 assert torch.isfinite(loss), loss
+# the evaluation path: a checkpoint, a crop_weed-style Test cache, engine.test
+import os, tempfile
+from weed_instance_segmentation_tpu_torch import config
+from weed_instance_segmentation_tpu_torch.datasets.crop_weed import definitions
+from weed_instance_segmentation_tpu_torch.datasets.dataset_utils import process_and_save
+from weed_instance_segmentation_tpu_torch.engine.checkpoint import save_pretrained
+from weed_instance_segmentation_tpu_torch.engine.test import test_model
+root = tempfile.mkdtemp()
+model = build_model('tiny-test', num_labels=2, device='cpu', seed=0)
+save_pretrained(os.path.join(root, 'models', 'run', 'best_model'), model.state_dict(),
+                model.config)
+original = np.zeros((80, 96), np.int32)
+original[10:40, 20:60] = 1
+process_and_save([{'pixel_values': np.zeros((3, 64, 64), np.float32),
+                   'mask_labels': np.ones((1, 64, 64), np.uint8),
+                   'class_labels': np.zeros(1, np.int64), 'target_size': (80, 96),
+                   'original_map': original, 'id_to_semantic': {1: 0},
+                   'file_name': f'img_{i}.png'} for i in range(3)],
+                 os.path.join(root, 'Processed', 'Test'))
+config.MODELS_OUTPUT_DIR = os.path.join(root, 'models') + '/'
+config.DATASET_LIST = ['crop_weed']
+definitions.PROCESSED_DIR = os.path.join(root, 'Processed') + '/'
+result = test_model('latest/best_model', device='cpu')
+assert set(result) >= {'map', 'map_50', 'map_75', 'classes'}, result
 print('imported', len(names), 'modules')
 '''
 
 
 def test_port_imports_nothing_of_jax():
-    """Every port module imports, and a tiny serving call and a tiny train
-    step run, with jax, flax, PIL, transformers and the JAX package made
+    """Every port module imports, and a tiny serving call, a tiny train
+    step and a tiny CPU ``engine.test`` over a fixture cache run, with jax,
+    flax, PIL, transformers, safetensors and the JAX package made
     unimportable."""
     env = {**os.environ, 'PYTHONPATH': REPO + os.pathsep + os.environ.get('PYTHONPATH', '')}
     proc = subprocess.run([sys.executable, '-c', _BLOCKED_IMPORTS], cwd=REPO, env=env,

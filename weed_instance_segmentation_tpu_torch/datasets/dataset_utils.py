@@ -73,6 +73,28 @@ class PreprocessedDataset:
             return {k: z[k] for k in self.keys}
 
 
+def collate_fn(batch: list[dict]) -> dict:
+    """The reference's ragged collation, as the evaluation path reads it:
+    ``pixel_values`` stacked, zero-padded at the bottom and right to the
+    batch's largest size; the per-sample label structures kept as lists."""
+    shapes = [item['pixel_values'].shape for item in batch]
+    max_h = max(s[1] for s in shapes)
+    max_w = max(s[2] for s in shapes)
+    pixel_values = np.zeros((len(batch), 3, max_h, max_w), dtype=np.float32)
+    for k, item in enumerate(batch):
+        _, h, w = item['pixel_values'].shape
+        pixel_values[k, :, :h, :w] = item['pixel_values']
+    return {
+        'pixel_values': pixel_values,
+        'mask_labels': [item['mask_labels'] for item in batch],
+        'class_labels': [item['class_labels'] for item in batch],
+        'target_sizes': [item['target_size'] for item in batch],
+        'original_maps': [item['original_map'] for item in batch],
+        'id_mappings': [item['id_to_semantic'] for item in batch],
+        'file_names': [item['file_name'] for item in batch],
+    }
+
+
 def pad_batch_static(batch: list[dict], pad_hw: tuple[int, int],
                      max_instances: int | None = None) -> dict:
     """One static shape for the whole run:

@@ -1,8 +1,11 @@
-"""Model construction: architecture presets and seeded initialisation.
+"""Model construction: architecture presets, seeded initialisation, and
+loading a saved model.
 
-Port of ``config_for_arch`` and the from-scratch branch of ``build_model`` in
-``weed_instance_segmentation_tpu/engine/model_utils.py``. Checkpoint loading,
-the image processor and plotting wait for the entry-point slice.
+Port of ``config_for_arch``, the from-scratch branch of ``build_model``,
+``resolve_model_path`` and ``load_model`` in
+``weed_instance_segmentation_tpu/engine/model_utils.py``. ``load_model``
+returns the model and its config: the image processor (PIL) comes with the
+raw-data slice, and plotting with the tail of the port.
 
 Initialisation follows the flax initialisers of the JAX package, drawn from
 one seeded ``torch.Generator`` (the numbers differ from ``jax.random``'s):
@@ -16,10 +19,13 @@ level embeddings.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 from torch import nn
 
+from weed_instance_segmentation_tpu_torch import config
+from weed_instance_segmentation_tpu_torch.engine import checkpoint as ckpt
 from weed_instance_segmentation_tpu_torch.models.configuration import Mask2FormerConfig
 from weed_instance_segmentation_tpu_torch.models.mask2former import Mask2Former
 from weed_instance_segmentation_tpu_torch.models.pixel_decoder import (
@@ -83,6 +89,14 @@ def init_weights(model: Mask2Former, seed: int = 0) -> None:
             nn.init.zeros_(p)
 
 
+def _device(device: str | torch.device, caller: str) -> torch.device:
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(f'{caller}: no CUDA device is available; pass device=\'cpu\' '
+                           'to build the model on the CPU')
+    return device
+
+
 def build_model(arch: str, num_labels: int, dtype: torch.dtype = torch.float32,
                 device: str | torch.device = 'cuda', seed: int = 0, *, train: bool = False,
                 remat: bool | str = False) -> Mask2Former:
@@ -94,10 +108,7 @@ def build_model(arch: str, num_labels: int, dtype: torch.dtype = torch.float32,
     parameters, the AdamW master copy; the bf16 compute comes from the train
     step's autocast, as the JAX package's ``dtype=bf16, param_dtype=f32``
     pair. ``remat`` as :class:`Mask2Former` takes it."""
-    device = torch.device(device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError('build_model: no CUDA device is available; pass device=\'cpu\' '
-                           'to build the model on the CPU')
+    device = _device(device, 'build_model')
     if train and dtype != torch.float32:
         raise ValueError(f'a training model keeps float32 parameters, got dtype={dtype}')
     cfg = config_for_arch(arch, num_labels=num_labels)
@@ -106,3 +117,50 @@ def build_model(arch: str, num_labels: int, dtype: torch.dtype = torch.float32,
     model.to_empty(device='cpu')
     init_weights(model, seed)
     return model.to(device=device, dtype=dtype).train(train)
+
+
+def _compute_dtype() -> torch.dtype:
+    """``config.COMPUTE_DTYPE`` ('float32', 'bfloat16', …) as a torch dtype."""
+    return getattr(torch, config.COMPUTE_DTYPE)
+
+
+def resolve_model_path(model_id: str) -> str:
+    """``MODELS_OUTPUT_DIR/<model_id>``, with any ``latest`` path component
+    replaced by the name-wise newest existing subdirectory (run directories
+    are ``YYYY-MM-DD_HH-MM-SS``, so name order is time order); a ``latest``
+    directory that exists is kept."""
+    path = os.path.join(config.MODELS_OUTPUT_DIR, model_id)
+    parts = path.split(os.sep)
+    for i, part in enumerate(parts):
+        if part != 'latest' or os.path.isdir(os.sep.join(parts[: i + 1])):
+            continue
+        parent = os.sep.join(parts[:i]) or os.sep
+        runs = sorted(d for d in (os.listdir(parent) if os.path.isdir(parent) else [])
+                      if os.path.isdir(os.path.join(parent, d)))
+        if runs:
+            parts[i] = runs[-1]
+    return os.sep.join(parts)
+
+
+def model_from_state_dict(cfg: Mask2FormerConfig, state_dict: dict,
+                          dtype: torch.dtype = torch.float32,
+                          device: str | torch.device = 'cuda') -> Mask2Former:
+    """An eval-mode ``Mask2Former`` of ``cfg`` holding ``state_dict`` (every
+    key filled, none left over), on ``device`` in ``dtype``."""
+    device = _device(device, 'model_from_state_dict')
+    with torch.device('meta'):
+        model = Mask2Former(cfg)
+    model.load_state_dict(state_dict, strict=True, assign=True)
+    return model.to(device=device, dtype=dtype).eval()
+
+
+def load_model(model_id: str, device: str | torch.device = 'cuda'
+               ) -> tuple[Mask2Former, Mask2FormerConfig]:
+    """(model, config) from ``MODELS_OUTPUT_DIR/<model_id>`` (a ``latest``
+    component resolves as :func:`resolve_model_path` says). The float32
+    parameters are loaded, then the model is cast to
+    ``config.COMPUTE_DTYPE``, in which it computes, as the serving model
+    does; it is built on ``device``, the card unless the caller asks for
+    the CPU."""
+    cfg, state_dict = ckpt.load_pretrained(resolve_model_path(model_id))
+    return model_from_state_dict(cfg, state_dict, _compute_dtype(), device), cfg

@@ -1,4 +1,4 @@
-"""Train and eval steps.
+"""Train, eval and inference steps.
 
 Port of ``weed_instance_segmentation_tpu/engine/steps.py``:
 
@@ -15,6 +15,8 @@ Port of ``weed_instance_segmentation_tpu/engine/steps.py``:
 - A train step's four parts run in ``torch.profiler.record_function`` ranges
   named ``forward``, ``criterion``, ``backward`` and ``optimizer``, so a
   profiler trace of real steps splits their time.
+
+``make_forward_fn`` is the inference forward of the evaluation path.
 
 A batch is the dict of ``datasets/dataset_utils.py::pad_batch_static`` as
 tensors on the model's device (``datasets/loader.py::to_device``).
@@ -118,3 +120,17 @@ def make_eval_step(model: torch.nn.Module, cfg: Mask2FormerConfig,
             model.train(was_training)
 
     return eval_step
+
+
+def make_forward_fn(model: torch.nn.Module) -> Callable:
+    """(pixel_values) → ``Mask2FormerOutput``: the model's forward in eval
+    mode (no drop path) under ``torch.no_grad()``, in the dtype the model
+    holds (the JAX package's ``make_forward_fn`` takes the params as an
+    argument; here the model holds them)."""
+
+    @torch.no_grad()
+    def forward(pixel_values: torch.Tensor):
+        model.eval()
+        return model(pixel_values)
+
+    return forward

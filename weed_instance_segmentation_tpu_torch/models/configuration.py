@@ -3,12 +3,15 @@
 Dataclass twins of HF ``Mask2FormerConfig`` / ``SwinConfig``, copied by value
 from ``weed_instance_segmentation_tpu/models/configuration.py`` (importing that
 module would run the JAX package's ``__init__``). Only the Swin backbone is
-ported so far.
+ported so far. ``from_json``/``save_json`` read and write the same
+``config.json`` as the JAX package (and as an HF checkpoint).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Optional
 
 
@@ -115,3 +118,55 @@ class Mask2FormerConfig:
         )
         defaults.update(kwargs)
         return cls(**defaults)
+
+    @classmethod
+    def from_json(cls, path: str) -> 'Mask2FormerConfig':
+        """Load from a checkpoint directory's ``config.json`` (or the file)."""
+        cfg_file = path if path.endswith('.json') else os.path.join(path, 'config.json')
+        with open(cfg_file) as f:
+            raw = json.load(f)
+        return cls.from_hf_dict(raw)
+
+    @classmethod
+    def from_hf_dict(cls, raw: dict) -> 'Mask2FormerConfig':
+        bb = raw.get('backbone_config') or {}
+        if bb.get('model_type', 'swin') != 'swin':
+            raise ValueError(f'Unsupported backbone model_type {bb.get("model_type")!r}')
+        backbone = SwinConfig(
+            image_size=bb.get('image_size', 224),
+            patch_size=bb.get('patch_size', 4),
+            embed_dim=bb.get('embed_dim', 96),
+            depths=tuple(bb.get('depths', (2, 2, 18, 2))),
+            num_heads=tuple(bb.get('num_heads', (3, 6, 12, 24))),
+            window_size=bb.get('window_size', 7),
+            mlp_ratio=bb.get('mlp_ratio', 4.0),
+            qkv_bias=bb.get('qkv_bias', True),
+            drop_path_rate=bb.get('drop_path_rate', 0.3),
+            layer_norm_eps=bb.get('layer_norm_eps', 1e-5),
+            use_absolute_embeddings=bb.get('use_absolute_embeddings', False),
+        )
+        id2label = raw.get('id2label')
+        if id2label is not None:
+            id2label = {int(k): v for k, v in id2label.items()}
+        fields = {f.name for f in dataclasses.fields(cls)}
+        kwargs = {k: v for k, v in raw.items() if k in fields and k not in
+                  ('backbone_config', 'id2label', 'label2id', 'feature_strides')}
+        return cls(
+            backbone_config=backbone,
+            id2label=id2label,
+            feature_strides=tuple(raw.get('feature_strides', (4, 8, 16, 32))),
+            **kwargs,
+        )
+
+    def to_hf_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        bb = d.pop('backbone_config')
+        bb['model_type'] = 'swin'
+        d['backbone_config'] = bb
+        d['model_type'] = 'mask2former'
+        return d
+
+    def save_json(self, directory: str) -> None:
+        os.makedirs(directory, exist_ok=True)
+        with open(os.path.join(directory, 'config.json'), 'w') as f:
+            json.dump(self.to_hf_dict(), f, indent=2, default=list)

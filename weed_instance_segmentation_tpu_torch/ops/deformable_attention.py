@@ -1,19 +1,38 @@
 """Multi-scale deformable attention (MSDA) sampling core, plain PyTorch.
 
 Same contract as ``weed_instance_segmentation_tpu/ops/deformable_attention.py
-::msda_reference`` and the forward of ``ops/msda_select.py::msda``, with the
-numerics of HF ``multi_scale_deformable_attention``
-(HF:modeling_mask2former.py:799-838): per level, a bilinear sample of the
-per-head value maps at the sampling locations (``align_corners=False``, zero
-padding), then a weighted sum over levels × points.
+::msda_reference`` and ``ops/msda_select.py::msda``, with the numerics of HF
+``multi_scale_deformable_attention`` (HF:modeling_mask2former.py:799-838):
+per level, a bilinear sample of the per-head value maps at the sampling
+locations (``align_corners=False``, zero padding), then a weighted sum over
+levels × points.
 
-Formulation: one flat value table over (batch·head·level) and one row gather
+Forward: one flat value table over (batch·head·level) and one row gather
 per bilinear corner, as ``ops/msda_fused.py`` does, with its rounding:
-sampling coordinates and attention weights are cast to float32, each corner's
-tap weight is formed in float32 and cast to the value dtype, and the corners
-are weighted, summed over points and accumulated in the value dtype (at bf16,
-each sum is taken in float32 and rounded). The JAX package has no Pallas
-kernel for MSDA; a hand-written Hopper kernel is queued in ROADMAP.md.
+sampling coordinates and attention weights are cast to float32, each
+corner's tap weight is formed in float32 and cast to the value dtype, and
+the corners are weighted, summed over points and accumulated in the value
+dtype (at bf16, each sum is taken in float32 and rounded).
+
+Backward, split as the JAX package's custom VJP splits it
+(``ops/msda_select.py::_msda_hybrid_bwd``):
+
+- location and weight gradients: autograd of the fused form with the value
+  table held constant (its graph is built in the forward, so the gathered
+  rows are not fetched twice);
+- value gradient: each tap's product of cotangent and rounded tap weight,
+  in the value dtype as autograd of the fused form forms it, added into a
+  float32 table with ``index_add_`` and cast to the value dtype once. The
+  JAX package also sums in float32 (``ops/msda_transpose.py``); autograd of
+  ``table[idx]`` would add every tap into a table of the value dtype,
+  rounding each partial sum to bf16. The order of the sum is not fixed on
+  the card: ``index_add_`` adds with atomics there, so two calls may differ
+  in the last bits of the float32 sums (a fixed-order sum comes with the
+  MSDA backward kernel). The dense separable einsum of the JAX package is a
+  TPU workaround for row-serial scatters and is not ported.
+
+The JAX package has no Pallas kernel for MSDA; a hand-written Hopper kernel
+is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -21,35 +40,12 @@ from __future__ import annotations
 import torch
 
 
-def msda(
-    value: torch.Tensor,
-    spatial_shapes: tuple,
-    sampling_locations: torch.Tensor,
-    attention_weights: torch.Tensor,
-) -> torch.Tensor:
-    """
-    Args:
-        value: (B, L_total, heads, head_dim) — per-level feature maps
-            flattened and concatenated along L_total.
-        spatial_shapes: tuple of (H_l, W_l) per level.
-        sampling_locations: (B, Q, heads, levels, points, 2), normalized
-            [0, 1] (x, y).
-        attention_weights: (B, Q, heads, levels, points), softmaxed over
-            levels × points.
-    Returns:
-        (B, Q, heads * head_dim) in ``value.dtype``.
-    """
-    b, l_total, heads, head_dim = value.shape
-    _, q, _, _, points, _ = sampling_locations.shape
-
-    # flat table: row (bi·heads + h)·L_total + level_off + y·W + x
-    table = value.transpose(1, 2).reshape(b * heads * l_total, head_dim)
-    bh_base = (torch.arange(b * heads, device=value.device) * l_total).reshape(b, 1, heads, 1)
-
-    locations = sampling_locations.float()
-    weights = attention_weights.float()
-
-    out = torch.zeros((b, q, heads, head_dim), dtype=value.dtype, device=value.device)
+def _taps(spatial_shapes: tuple, l_total: int, b: int, heads: int,
+          locations: torch.Tensor, weights: torch.Tensor, dtype: torch.dtype):
+    """Per bilinear corner of every level: the flat-table row of each tap
+    (B, Q, heads, P) and its weight (attention weight × bilinear weight × in
+    bounds), formed in float32 and rounded to ``dtype``."""
+    bh_base = (torch.arange(b * heads, device=locations.device) * l_total).reshape(b, 1, heads, 1)
     level_off = 0
     for level, (hl, wl) in enumerate(spatial_shapes):
         loc = locations[:, :, :, level]  # (B, Q, heads, P, 2)
@@ -72,9 +68,92 @@ def msda(
                 xw = wx1 if dx else 1.0 - wx1
                 valid = y_ok & (ix >= 0) & (ix <= wl - 1)
                 idx = base + row + ix.clamp(0, wl - 1).long()
-                rows = table[idx.reshape(-1)].reshape(b, q, heads, points, head_dim)
-                wgt = (xw * yw * valid * level_w).to(value.dtype)  # (B, Q, heads, P)
-                out += (rows * wgt[..., None]).sum(dim=3)
+                yield idx, (xw * yw * valid * level_w).to(dtype)  # (B, Q, heads, P)
         level_off += hl * wl
 
+
+def _msda_fused(value, spatial_shapes, sampling_locations, attention_weights):
+    b, l_total, heads, head_dim = value.shape
+    _, q, _, _, points, _ = sampling_locations.shape
+    # flat table: row (bi·heads + h)·L_total + level_off + y·W + x
+    table = value.transpose(1, 2).reshape(b * heads * l_total, head_dim)
+    out = torch.zeros((b, q, heads, head_dim), dtype=value.dtype, device=value.device)
+    for idx, wgt in _taps(spatial_shapes, l_total, b, heads, sampling_locations.float(),
+                          attention_weights.float(), value.dtype):
+        rows = table[idx.reshape(-1)].reshape(b, q, heads, points, head_dim)
+        out += (rows * wgt[..., None]).sum(dim=3)
     return out.reshape(b, q, heads * head_dim)
+
+
+def _value_grad(g, value_shape, dtype, spatial_shapes, locations, weights):
+    """Cotangent (B, Q, heads·D) → the value gradient (B, L_total, heads, D):
+    each tap's product in ``dtype``, summed into float32, cast once."""
+    b, l_total, heads, head_dim = value_shape
+    _, q, _, _, points, _ = locations.shape
+    g = g.to(dtype).reshape(b, q, heads, 1, head_dim)
+    table = torch.zeros((b * heads * l_total, head_dim), dtype=torch.float32, device=g.device)
+    for idx, wgt in _taps(spatial_shapes, l_total, b, heads, locations.float(), weights.float(),
+                          dtype):
+        taps = (g * wgt[..., None]).float()  # the product rounded to dtype, as autograd forms it
+        table.index_add_(0, idx.reshape(-1), taps.reshape(-1, head_dim))
+    return table.reshape(b, heads, l_total, head_dim).transpose(1, 2).to(dtype)
+
+
+class _MSDA(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.value_shape = value.shape
+        ctx.value_dtype = value.dtype
+        ctx.save_for_backward(sampling_locations, attention_weights)
+        ctx.inner = None
+        if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
+            # the location and weight gradients' graph, with the values held
+            # constant; the forward's result is this graph's output
+            with torch.enable_grad():
+                loc = sampling_locations.detach().requires_grad_(ctx.needs_input_grad[2])
+                w = attention_weights.detach().requires_grad_(ctx.needs_input_grad[3])
+                out = _msda_fused(value.detach(), spatial_shapes, loc, w)
+            ctx.inner = (out, loc, w)
+            return out.detach()
+        return _msda_fused(value, spatial_shapes, sampling_locations, attention_weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        locations, weights = ctx.saved_tensors
+        g_value = g_loc = g_w = None
+        if ctx.inner is not None:
+            out, loc, w = ctx.inner
+            ctx.inner = None
+            wanted = [t for t in (loc, w) if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, g))
+            g_loc = next(grads) if loc.requires_grad else None
+            g_w = next(grads) if w.requires_grad else None
+        if ctx.needs_input_grad[0]:
+            g_value = _value_grad(g, ctx.value_shape, ctx.value_dtype, ctx.spatial_shapes,
+                                  locations, weights)
+        return g_value, None, g_loc, g_w
+
+
+def msda(
+    value: torch.Tensor,
+    spatial_shapes: tuple,
+    sampling_locations: torch.Tensor,
+    attention_weights: torch.Tensor,
+) -> torch.Tensor:
+    """
+    Args:
+        value: (B, L_total, heads, head_dim) — per-level feature maps
+            flattened and concatenated along L_total.
+        spatial_shapes: tuple of (H_l, W_l) per level.
+        sampling_locations: (B, Q, heads, levels, points, 2), normalized
+            [0, 1] (x, y).
+        attention_weights: (B, Q, heads, levels, points), softmaxed over
+            levels × points.
+    Returns:
+        (B, Q, heads * head_dim) in ``value.dtype``.
+    """
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (value, sampling_locations, attention_weights)):
+        return _MSDA.apply(value, tuple(spatial_shapes), sampling_locations, attention_weights)
+    return _msda_fused(value, spatial_shapes, sampling_locations, attention_weights)

@@ -22,6 +22,13 @@ with fixed-size outputs: the per-query overwrite loop becomes a max over
 "last kept slot covering this pixel", evaluated at 384² so that only the
 final int32 id map is gathered to the target size.
 
+:func:`post_process_instance_segmentation` is the HF-compatible wrapper of
+the evaluation path: one call of the arrays function (so one post-process
+kernel launch on the card) per image at that image's target size, then a
+list of ``{'segmentation', 'segments_info'}`` on the host. It asks for the
+target-size masks only when ``return_binary_maps`` does (the JAX package
+always forms them): the metric path reads only the id map.
+
 Top-k order: ``lax.top_k`` in the JAX package returns values sorted
 descending, the lower index first on ties; a stable descending sort gives
 the same order (``torch.topk`` on CUDA promises no tie order).
@@ -133,3 +140,42 @@ def post_process_instance_arrays(
         valid=keep,
         masks=masks,
     )
+
+
+def post_process_instance_segmentation(
+    outputs,
+    threshold: float = 0.5,
+    mask_threshold: float = 0.5,  # API parity: HF binarizes at logits > 0
+    overlap_mask_area_threshold: float = 0.8,  # API parity; unused, as in HF
+    target_sizes: list[tuple[int, int]] | None = None,
+    return_binary_maps: bool = False,
+) -> list[dict]:
+    """Per image, ``{'segmentation': (H, W) float32 numpy id map (-1
+    background), 'segments_info': [{'id', 'label_id', 'was_fused', 'score'},
+    …]}`` over the kept slots in top-k order, scores rounded to 6 decimals;
+    with ``return_binary_maps`` the segmentation is the kept slots' (N, H, W)
+    float32 masks. ``outputs`` has ``class_queries_logits`` (B, Q, C+1) and
+    ``masks_queries_logits`` (B, Q, Hm, Wm)."""
+    class_logits, mask_logits = outputs.class_queries_logits, outputs.masks_queries_logits
+    b = class_logits.shape[0]
+    if target_sizes is None:
+        target_sizes = [SCORE_RESOLUTION] * b
+    results = []
+    for i in range(b):
+        res = post_process_instance_arrays(
+            class_logits[i:i + 1], mask_logits[i:i + 1], tuple(int(v) for v in target_sizes[i]),
+            float(threshold), with_masks=return_binary_maps)
+        valid = res.valid[0].cpu().numpy()
+        ids, labels, scores = (t[0].cpu().numpy() for t in (res.segment_ids, res.labels,
+                                                             res.scores))
+        segments_info = [
+            {'id': int(ids[j]), 'label_id': int(labels[j]), 'was_fused': False,
+             'score': round(float(scores[j]), 6)}
+            for j in range(len(valid)) if valid[j]
+        ]
+        if return_binary_maps:
+            segmentation = res.masks[0][res.valid[0]].cpu().numpy().astype(np.float32)
+        else:
+            segmentation = res.segmentation[0].cpu().numpy().astype(np.float32)
+        results.append({'segmentation': segmentation, 'segments_info': segments_info})
+    return results
