@@ -133,8 +133,6 @@ WARMUP_STEPS, TIMED_STEPS, ACCUMULATION, LEARNING_RATE = 2, 6, 2, 5e-5
 STEP_RANGES = ('forward', 'criterion', 'backward', 'optimizer')  # engine/steps.py
 EVAL_IMAGES, EVAL_BATCH, EVAL_ORIGINAL, EVAL_INSTANCES = 8, 2, 1024, 10
 EVAL_MODEL_ID = 'mask2former_fine_tuned/latest/best_model/'
-EVAL_STAGES = ('ground truth', 'forward', 'post-process', 'host reformat', 'IoU product',
-               'matching', 'other')
 TIMED_RUNS = 25
 # H100 SXM published peaks (dense): HBM bytes/s and FLOP/s by input type
 HBM_BYTES_PER_S = 3.35e12
@@ -680,28 +678,30 @@ def _unchanged(model, snapshot) -> bool:
     return all(torch.equal(p, s) for p, s in zip(model.parameters(), snapshot))
 
 
-def trace_split(trace: dict) -> tuple[dict, dict, collections.Counter]:
-    """From a profiler's Chrome trace of train steps: the device-busy ms of
-    the work launched in each of the step's ranges (``engine/steps.py``: a
-    kernel, copy or fill counts in the range whose host interval holds its
-    launch call; ``other`` if none does), the host ms spent in each range, and
-    the device ms by kernel name."""
+def trace_split(trace: dict, range_names: tuple) -> tuple[dict, dict, collections.Counter]:
+    """From a profiler's Chrome trace: the device-busy ms of the work
+    launched in each of ``range_names``' ``record_function`` ranges (a
+    kernel, copy or fill counts in the innermost range whose host interval
+    holds its launch call; ``other`` if none does), the host ms spent in each
+    range, and the device ms by kernel name."""
     events = [e for e in trace['traceEvents'] if e.get('ph') == 'X']
-    ranges = [(e['ts'], e['ts'] + e['dur'], e['name']) for e in events
-              if e.get('cat') == 'user_annotation' and e['name'] in STEP_RANGES]
+    ranges = sorted((e['ts'], e['ts'] + e['dur'], e['name']) for e in events
+                    if e.get('cat') == 'user_annotation' and e['name'] in range_names)
     launched_at = {e['args']['correlation']: e['ts'] for e in events
                    if e.get('cat') in ('cuda_runtime', 'cuda_driver')
                    and 'correlation' in e.get('args', {})}
-    device_ms = dict.fromkeys(STEP_RANGES + ('other',), 0.0)
+    device_ms = dict.fromkeys(tuple(range_names) + ('other',), 0.0)
     by_kernel = collections.Counter()
     for e in events:
         if e.get('cat') not in ('kernel', 'gpu_memcpy', 'gpu_memset'):
             continue
         ts = launched_at.get(e.get('args', {}).get('correlation'))
-        name = next((n for a, b, n in ranges if ts is not None and a <= ts <= b), 'other')
+        # ranges are sorted by start, so the last that holds the launch is the innermost
+        name = next((n for a, b, n in reversed(ranges) if ts is not None and a <= ts <= b),
+                    'other')
         device_ms[name] += e['dur'] / 1e3
         by_kernel[e['name']] += e['dur'] / 1e3
-    host_ms = {n: sum(b - a for a, b, m in ranges if m == n) / 1e3 for n in STEP_RANGES}
+    host_ms = {n: sum(b - a for a, b, m in ranges if m == n) / 1e3 for n in range_names}
     return device_ms, host_ms, by_kernel
 
 
@@ -773,7 +773,7 @@ def phase_training(dev: torch.device, cache_dir: str) -> dict:
     trace_path = os.path.join(cache_dir, 'trace.json')
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as f:
-        device_ms, host_ms, by_kernel = trace_split(json.load(f))
+        device_ms, host_ms, by_kernel = trace_split(json.load(f), STEP_RANGES)
     busy = sum(device_ms.values())
     log(f'traced 2 micro-steps (one update): {wall:.1f} ms wall, {busy:.1f} ms device busy, '
         f'idle share {max(0.0, 1 - busy / wall):.3f}')
@@ -826,63 +826,6 @@ class _SynthEval:
                 'file_name': f'test_{i:04d}.png'}
 
 
-class _EvalTimer:
-    """Wall seconds of the evaluation's stages, each call ended by a
-    synchronise: the functions of ``engine/metrics.py`` and
-    ``evaluation/mean_ap.py`` are wrapped while a run lasts (``patched``)."""
-
-    def __init__(self, dev: torch.device):
-        self.dev = dev
-        self.seconds = collections.Counter()
-        self.calls = collections.Counter()
-
-    def wrap(self, stage: str, fn):
-        def timed(*args, **kwargs):
-            torch.cuda.synchronize(self.dev)
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize(self.dev)
-            self.seconds[stage] += time.perf_counter() - t0
-            self.calls[stage] += 1
-            return out
-        return timed
-
-    @contextlib.contextmanager
-    def patched(self):
-        cls = mean_ap.MeanAveragePrecision
-        saved = [(engine_test, 'make_forward_fn'), (engine_test, 'test_with_metrics'),
-                 (metrics, 'targets_from_original_maps'),
-                 (metrics, 'post_process_instance_segmentation'),
-                 (metrics, 'predictions_from_postprocess'), (mean_ap, 'mask_iou_matrix'),
-                 (cls, 'update'), (cls, 'compute')]
-        saved = [(obj, name, getattr(obj, name)) for obj, name in saved]
-        engine_test.make_forward_fn = lambda model: self.wrap('forward', make_forward_fn(model))
-        engine_test.test_with_metrics = self.wrap('eval', metrics.test_with_metrics)
-        metrics.targets_from_original_maps = self.wrap(
-            'ground truth', metrics.targets_from_original_maps)
-        metrics.post_process_instance_segmentation = self.wrap(
-            'post-process', metrics.post_process_instance_segmentation)
-        metrics.predictions_from_postprocess = self.wrap(
-            'host reformat', metrics.predictions_from_postprocess)
-        mean_ap.mask_iou_matrix = self.wrap('IoU product', mean_ap.mask_iou_matrix)
-        cls.update = self.wrap('metric', cls.update)
-        cls.compute = self.wrap('metric', cls.compute)
-        try:
-            yield self
-        finally:
-            for obj, name, value in saved:
-                setattr(obj, name, value)
-
-    def split(self) -> dict:
-        """Seconds by stage within ``test_with_metrics``; ``other`` is what
-        no stage holds (the pixels' copy to the card, waits on the loader)."""
-        s = dict(self.seconds)
-        s['matching'] = s.pop('metric', 0.0) - s.get('IoU product', 0.0)
-        total = s.pop('eval', 0.0)
-        s['other'] = total - sum(s.get(stage, 0.0) for stage in EVAL_STAGES[:-1])
-        return {stage: s.get(stage, 0.0) for stage in EVAL_STAGES}
-
-
 @contextlib.contextmanager
 def _eval_config(root: str):
     """The config an ``engine.test`` run reads, pointed at ``root``: bf16,
@@ -914,10 +857,18 @@ def _check_metric_dict(result: dict, what: str) -> None:
     check(float(result['map']) >= 0.0, f'{what}: map {result["map"]} with ground truth present')
 
 
+def _eval_run(forward, dataset, threshold: float, dev: torch.device) -> dict:
+    return metrics.test_with_metrics(forward, DataLoader(dataset, EVAL_BATCH, collate_fn),
+                                     threshold, dev)
+
+
 def phase_eval(dev: torch.device, root: str) -> dict:
     """Swin-L evaluation through ``engine.test`` (bf16, batch 2, threshold
-    0.5) and once more at threshold 0.0, from a saved model directory and a
-    synthetic Test cache."""
+    0.5) from a saved model directory and a synthetic Test cache; then
+    ``test_with_metrics`` alone at thresholds 0.5 and 0.0, once more at 0.0
+    under the profiler for the split by stage (``engine/metrics.py``'s
+    ranges), and the post-process kernel against its plain version on one
+    image's logits from the forward."""
     t0 = time.perf_counter()
     process_and_save(_SynthEval(EVAL_IMAGES), os.path.join(root, 'Processed', 'Test'))
     model = build_model('swin-large', num_labels=TRAIN_LABELS, device=dev, seed=0)
@@ -936,43 +887,69 @@ def phase_eval(dev: torch.device, root: str) -> dict:
                 'window_attention_fwd': n_batches * sum(cfg.backbone_config.depths),
                 'masked_attention_fwd': n_batches * (cfg.decoder_layers - 1),
                 'window_attention_bwd': 0, 'masked_attention_bwd': 0}
-    launches = None
+    what = f'swin-large {TRAIN_HW}x{TRAIN_HW} b{EVAL_BATCH} bf16, {EVAL_IMAGES} images'
+
+    def checked(run: str, result: dict) -> dict:
+        launched = counts()
+        _check_metric_dict(result, run)
+        for name, n in expected.items():
+            check(launched[name] == n, f'eval {run} launched {name} {launched[name]} times, not {n}')
+        return launched
+
     with _eval_config(root):
-        for run, threshold in (('engine.test', 0.5), ('test_with_metrics', 0.0)):
-            timer = _EvalTimer(dev)
+        # engine.test as a user runs it: checkpoint, cache, loader, metrics
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        result = engine_test.test_model(EVAL_MODEL_ID, device=dev)
+        wall = time.perf_counter() - t0
+        launches = checked('engine.test', result)
+        log(f'eval engine.test (threshold 0.5) {what}: {EVAL_IMAGES / wall:.3f} img/s over '
+            f'{1e3 * wall:.1f} ms with the checkpoint and cache loads, peak memory '
+            f'{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches {launches}')
+
+        model, _ = load_model(EVAL_MODEL_ID, dev)
+        dataset = PreprocessedDataset(os.path.join(root, 'Processed', 'Test'))
+        forward = make_forward_fn(model)
+        for threshold in (0.5, 0.0):
             torch.cuda.reset_peak_memory_stats(dev)
             reset_counts()
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with timer.patched():
-                if run == 'engine.test':
-                    result = engine_test.test_model(EVAL_MODEL_ID, device=dev)
-                else:
-                    model, _ = load_model(EVAL_MODEL_ID, dev)
-                    dataset = PreprocessedDataset(os.path.join(root, 'Processed', 'Test'))
-                    result = engine_test.test_with_metrics(
-                        engine_test.make_forward_fn(model),
-                        DataLoader(dataset, EVAL_BATCH, collate_fn), threshold, dev)
-            wall = time.perf_counter() - t0
-            run_launches = counts()
-            _check_metric_dict(result, run)
-            for name, n in expected.items():
-                check(run_launches[name] == n,
-                      f'eval {run} launched {name} {run_launches[name]} times, not {n}')
-            split = timer.split()
-            eval_s = timer.seconds['eval']
-            log(f'eval {run} (threshold {threshold}) swin-large {TRAIN_HW}x{TRAIN_HW} '
-                f'b{EVAL_BATCH} bf16, {EVAL_IMAGES} images: {EVAL_IMAGES / eval_s:.3f} img/s over '
-                f'{1e3 * eval_s:.1f} ms in test_with_metrics ({1e3 * wall:.1f} ms with loading), '
-                f'peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, '
-                f'launches {run_launches}')
-            log('  split ms: ' + ', '.join(f'{k} {1e3 * v:.1f}' for k, v in split.items())
-                + f' (IoU products {timer.calls["IoU product"]}); map {float(result["map"]):.4f}, '
-                f'map_50 {float(result["map_50"]):.4f}, mar_100 {float(result["mar_100"]):.4f}')
-            if threshold == 0.0:
-                check(timer.calls['IoU product'] > 0, 'no IoU product at threshold 0.0')
-            launches = launches or run_launches
+            result = _eval_run(forward, dataset, threshold, dev)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launched = checked(f'test_with_metrics at {threshold}', result)
+            log(f'eval test_with_metrics (threshold {threshold}) {what}: '
+                f'{EVAL_IMAGES / seconds:.3f} img/s over {1e3 * seconds:.1f} ms, peak memory '
+                f'{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches {launched}; '
+                f'map {float(result["map"]):.4f}, map_50 {float(result["map_50"]):.4f}, '
+                f'mar_100 {float(result["mar_100"]):.4f}')
+
+        # where the time goes: one more run at threshold 0.0 under the profiler
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _eval_run(forward, dataset, 0.0, dev)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        trace_path = os.path.join(root, 'eval_trace.json')
+        prof.export_chrome_trace(trace_path)
+        with open(trace_path) as f:
+            device_ms, host_ms, _ = trace_split(json.load(f), metrics.EVAL_RANGES)
+        os.remove(trace_path)
+        check(host_ms['IoU product'] > 0 and device_ms['IoU product'] > 0,
+              'no IoU product on the device at threshold 0.0')
+        host_ms['matching'] = (host_ms.pop('metric update') + host_ms.pop('metric compute')
+                               - host_ms['IoU product'])
+        busy = sum(device_ms.values())
+        log(f'eval test_with_metrics (threshold 0.0) traced: {wall:.1f} ms wall, {busy:.1f} ms '
+            f'device busy, idle share {max(0.0, 1 - busy / wall):.3f}; host ms by stage: '
+            + ', '.join(f'{k} {v:.1f}' for k, v in host_ms.items()) + '; device busy ms: '
+            + ', '.join(f'{k} {v:.1f}' for k, v in device_ms.items()))
+
     # the forward of one batch alone: event-timed, and its device-busy time
-    forward = make_forward_fn(model)
     pixels = torch.from_numpy(collate_fn([dataset[i] for i in range(EVAL_BATCH)])
                               ['pixel_values']).to(dev)
     event_ms = statistics.median(time_ms(lambda: forward(pixels)) for _ in range(5))
@@ -980,18 +957,27 @@ def phase_eval(dev: torch.device, root: str) -> dict:
     log(f'eval forward of one batch ({tuple(pixels.shape)}, bf16): {event_ms:.1f} ms '
         f'(median of 5, CUDA events), device busy {sum(split.values()):.1f} ms; top kernels: '
         + '; '.join(f'{kernel_name(k)[:40]} {ms:.2f} ms' for k, ms in split.most_common(6)))
-    del model, forward, pixels
-    torch.cuda.empty_cache()
 
-    # one image's post-process at the eval's target size, on the device
-    g = torch.Generator(device=dev).manual_seed(12)
-    class_logits = torch.randn((1, cfg.num_queries, TRAIN_LABELS + 1), generator=g, device=dev)
-    mask_logits = torch.randn((1, cfg.num_queries, TRAIN_HW // 4, TRAIN_HW // 4), generator=g,
-                              device=dev) * 2
+    # one image's post-process as the eval path runs it: the first image's
+    # logits from that forward, (1, Q, 200, 200) bf16 handed to the kernel as
+    # float32, at the eval's target size
+    out = forward(pixels)
+    class_logits = out.class_queries_logits[:1]
+    mask_logits = out.masks_queries_logits[:1]
+    del model, forward, pixels, out
+    torch.cuda.empty_cache()
+    logits = mask_logits.float().contiguous()
+    first = fused_upsample_stats(logits, SCORE_RESOLUTION)
+    n_flips, err = check_postprocess(logits, first)
+    second = fused_upsample_stats(logits, SCORE_RESOLUTION)
+    check(all(torch.equal(a, b) for a, b in zip(first, second)),
+          'two post-process calls on one image gave different bits')
     split = device_split(lambda: post_process_instance_arrays(
         class_logits, mask_logits, (EVAL_ORIGINAL, EVAL_ORIGINAL), 0.5, with_masks=False))
     kernel_ms = sum(ms for key, ms in split.items() if 'band' in kernel_name(key))
-    log(f'post-process of one image ({tuple(mask_logits.shape)} -> {EVAL_ORIGINAL}² target): '
+    log(f'post-process of one image ({tuple(logits.shape)} -> {SCORE_RESOLUTION} bins, '
+        f'{EVAL_ORIGINAL}² target): kernel vs plain {n_flips} bin flips at zero crossings, '
+        f'sig_sum max abs err {err:.3e}, pos_cnt exact after flips, two calls the same bits; '
         f'device busy {sum(split.values()):.4f} ms, of which the kernel {kernel_ms:.4f} ms; '
         'top launches: ' + '; '.join(f'{kernel_name(k)[:40]} {1e3 * ms:.1f} µs'
                                      for k, ms in split.most_common(6)))

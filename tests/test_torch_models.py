@@ -154,6 +154,24 @@ def test_msda_gradients_match_jax():
         np.testing.assert_allclose(_np(t.grad), np.asarray(w), atol=1e-5, err_msg=name)
 
 
+def test_msda_second_backward_raises():
+    """A second backward through one graph (``retain_graph=True``) raises
+    where the location or weight gradient is wanted, as the inner graph is
+    gone; the value gradient alone may be taken again."""
+    shapes = ((4, 6), (2, 3))
+    value, locs, weights = (torch.from_numpy(a) for a in _msda_inputs(
+        np.random.default_rng(16), 1, 2, 8, 5, shapes))
+    out = msda(value, shapes, locs.requires_grad_(), weights).sum()
+    out.backward(retain_graph=True)
+    with pytest.raises(RuntimeError, match='a second time'):
+        out.backward()
+    out = msda(value.requires_grad_(), shapes, locs.detach(), weights).sum()
+    out.backward(retain_graph=True)
+    first = value.grad.clone()
+    out.backward()
+    assert torch.equal(value.grad, 2 * first)
+
+
 @pytest.mark.parametrize('needs', ['all', 'value-only', 'locations-only'])
 def test_msda_forward_bits_unchanged_under_autograd(needs):
     """The ``autograd.Function``'s forward is the fused form: at bf16 its

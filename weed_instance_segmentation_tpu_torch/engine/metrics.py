@@ -18,15 +18,21 @@ on host 0) waits for the data-parallel slice.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from weed_instance_segmentation_tpu_torch.evaluation.mean_ap import MeanAveragePrecision
 from weed_instance_segmentation_tpu_torch.processing.postprocess import (
     post_process_instance_segmentation,
 )
+
+# the ranges of ``test_with_metrics``, in the order a batch runs them; the
+# metric update holds ``evaluation/mean_ap.py``'s 'IoU product' range
+EVAL_RANGES = ('ground truth', 'forward', 'post-process', 'host reformat', 'metric update',
+               'IoU product', 'metric compute')
 
 
 def targets_from_original_maps(original_maps, id_mappings) -> list[dict]:
@@ -74,46 +80,36 @@ def predictions_from_postprocess(predictions: list[dict]) -> list[dict]:
     return formatted
 
 
-class _FinalLogits(NamedTuple):
-    """The final layer's logits of a batch's real rows (all the
-    post-process reads)."""
-
-    class_queries_logits: torch.Tensor
-    masks_queries_logits: torch.Tensor
-
-
 def test_with_metrics(forward_fn: Callable, data_loader, threshold: float = 0.5,
                       device: str | torch.device = 'cuda') -> dict:
     """COCO segm mAP over a loader of reference-style ragged batches
     (``datasets/dataset_utils.py::collate_fn``). ``forward_fn(pixel_values)``
     is the inference forward (``engine/steps.py::make_forward_fn``) of a
-    model on ``device``. A batch shorter than the first is padded to its
-    size with repeats of its last image, so every batch has one shape; the
-    repeats' predictions are dropped."""
+    model on ``device``. A short last batch runs at its own size (the JAX
+    package pads it to keep one compiled shape; the port compiles none).
+    Each stage is a ``record_function`` range (``EVAL_RANGES``), so a
+    profiler trace splits the time by stage."""
     map_metric = MeanAveragePrecision(iou_type='segm', device=device)
     print('Calculating Metrics...')
     num_batches = len(data_loader)
-    padded_b = None
     for i, batch in enumerate(data_loader):
         if (i + 1) % 5 == 0:
             print(f'  Processing batch {i + 1}/{num_batches}')
-        pixel_values = np.asarray(batch['pixel_values'])
-        n_valid = pixel_values.shape[0]
-        targets = targets_from_original_maps(batch['original_maps'], batch['id_mappings'])
-        if padded_b is None:
-            padded_b = n_valid
-        if n_valid < padded_b:
-            pad = np.repeat(pixel_values[-1:], padded_b - n_valid, axis=0)
-            pixel_values = np.concatenate([pixel_values, pad], axis=0)
-        outputs = forward_fn(torch.from_numpy(pixel_values).to(device))
-        outputs = _FinalLogits(outputs.class_queries_logits[:n_valid],
-                               outputs.masks_queries_logits[:n_valid])
-        predictions = post_process_instance_segmentation(
-            outputs, threshold=threshold, mask_threshold=0.5,
-            target_sizes=batch['target_sizes'],
-        )
-        map_metric.update(predictions_from_postprocess(predictions), targets)
-    return map_metric.compute()
+        with record_function('ground truth'):
+            targets = targets_from_original_maps(batch['original_maps'], batch['id_mappings'])
+        with record_function('forward'):
+            outputs = forward_fn(torch.from_numpy(np.asarray(batch['pixel_values'])).to(device))
+        with record_function('post-process'):
+            predictions = post_process_instance_segmentation(
+                outputs, threshold=threshold, mask_threshold=0.5,
+                target_sizes=batch['target_sizes'],
+            )
+        with record_function('host reformat'):
+            formatted = predictions_from_postprocess(predictions)
+        with record_function('metric update'):
+            map_metric.update(formatted, targets)
+    with record_function('metric compute'):
+        return map_metric.compute()
 
 
 def print_metrics_evaluation(metrics_evaluation: dict, model_name: str = 'Model') -> None:

@@ -122,7 +122,10 @@ class _MSDA(torch.autograd.Function):
     def backward(ctx, g):
         locations, weights = ctx.saved_tensors
         g_value = g_loc = g_w = None
-        if ctx.inner is not None:
+        if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
+            if ctx.inner is None:  # the inner graph was freed by the first backward
+                raise RuntimeError('msda: backward through this graph a second time is not '
+                                   'supported')
             out, loc, w = ctx.inner
             ctx.inner = None
             wanted = [t for t in (loc, w) if t.requires_grad]
