@@ -42,7 +42,9 @@ Phases, each of which must pass (the script exits non-zero on any failure):
 6. evaluation: Swin-L with random seeded weights saved by ``save_pretrained``
    into a model directory, a synthetic ``.npz`` ``Test`` cache of 8 images
    (800² pixels from 1024² originals, 10 instances each), then
-   ``engine.test.test_model`` in bf16 at batch 2 and one more
+   ``engine.test.test_model`` at batch 2 with ``COMPUTE_DTYPE`` bfloat16,
+   which computes in float32 as the JAX entry point does (the f32 attention
+   kernels), and one more
    ``test_with_metrics`` at threshold 0.0 over the same cache (every
    covering slot reaches the IoU product and the matching); each run's
    img/s, peak memory, the split of its time (ground truth, forward,
@@ -57,7 +59,19 @@ Phases, each of which must pass (the script exits non-zero on any failure):
    draws, and ``test_with_metrics`` at threshold 0.0 over a small cache
    (the metric dicts equal, or within 0.01 where bins flipped at zero
    crossings, which are printed); and ``mask_iou_matrix`` on 100 x 1024²
-   against 20 x 1024² masks, the same bits on the card and the CPU.
+   against 20 x 1024² masks, the same bits on the card and the CPU;
+8. trainer: ``engine.train.main()`` on the card, Swin-L from scratch (random
+   seeded weights), bf16, batch 2, accumulation 2, remat, 1 epoch over a
+   pheno_bench-style ``.npz`` cache (Train 8 and Validate 2 at 800² with 10
+   instances each, Test 4 from 1024² originals): the metadata's keys and a
+   finite history, ``best_model/``, ``final_model/`` and ``train_state/``
+   written and ``best_model/`` read back, the float32 test phase's metric
+   dict, and each kernel's launches equal to what the loops imply (4
+   micro-steps, 1 validation and 2 test batches, 4 test images); the
+   epoch's img/s and input duty cycle, each save's seconds and size, the
+   test phase's img/s and peak memory. Then at tiny-test, 1 epoch and a
+   ``WISTPU_RESUME`` on to 2: history epochs [1, 2], micro-steps 2 then 4;
+   and a ``WISTPU_PROFILE`` run whose ``device_duty_profiled`` is recorded.
 
 The last lines are a JSON summary of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -85,15 +99,21 @@ import torch.nn.functional as F
 
 from weed_instance_segmentation_tpu_torch import config
 from weed_instance_segmentation_tpu_torch.datasets.crop_weed import definitions as crop_weed
+from weed_instance_segmentation_tpu_torch.datasets.pheno_bench import definitions as pheno_bench
 from weed_instance_segmentation_tpu_torch.datasets.dataset_utils import (
-    TRAIN_SAMPLE_KEYS, PreprocessedDataset, collate_fn, make_train_collate, process_and_save,
+    TRAIN_SAMPLE_KEYS, PreprocessedDataset, Subset, collate_fn, make_train_collate,
+    process_and_save,
 )
 from weed_instance_segmentation_tpu_torch.datasets.loader import DataLoader, device_batches, to_device
+from weed_instance_segmentation_tpu_torch.engine import checkpoint as ckpt
 from weed_instance_segmentation_tpu_torch.engine import metrics
 from weed_instance_segmentation_tpu_torch.engine import test as engine_test
-from weed_instance_segmentation_tpu_torch.engine.checkpoint import save_pretrained
+from weed_instance_segmentation_tpu_torch.engine import train as engine_train
+from weed_instance_segmentation_tpu_torch.engine.checkpoint import load_pretrained, save_pretrained
 from weed_instance_segmentation_tpu_torch.engine.export import make_serving_fn
-from weed_instance_segmentation_tpu_torch.engine.model_utils import build_model, load_model
+from weed_instance_segmentation_tpu_torch.engine.model_utils import (
+    build_model, config_for_arch, resolve_model_path,
+)
 from weed_instance_segmentation_tpu_torch.engine.steps import (
     make_forward_fn, make_optimizer, make_train_step,
 )
@@ -828,8 +848,9 @@ class _SynthEval:
 
 @contextlib.contextmanager
 def _eval_config(root: str):
-    """The config an ``engine.test`` run reads, pointed at ``root``: bf16,
-    batch 2, a crop_weed-style ``Processed/Test`` cache."""
+    """The config an ``engine.test`` run reads, pointed at ``root``: a bf16
+    compute dtype (which the test model must not take), batch 2, a
+    crop_weed-style ``Processed/Test`` cache."""
     values = {'MODELS_OUTPUT_DIR': os.path.join(root, 'models') + '/',
               'DATASET_LIST': ['crop_weed'], 'BATCH_SIZE': EVAL_BATCH,
               'COMPUTE_DTYPE': 'bfloat16'}
@@ -863,8 +884,8 @@ def _eval_run(forward, dataset, threshold: float, dev: torch.device) -> dict:
 
 
 def phase_eval(dev: torch.device, root: str) -> dict:
-    """Swin-L evaluation through ``engine.test`` (bf16, batch 2, threshold
-    0.5) from a saved model directory and a synthetic Test cache; then
+    """Swin-L evaluation through ``engine.test`` (float32 whatever the
+    compute dtype, batch 2, threshold 0.5) from a saved model directory and a synthetic Test cache; then
     ``test_with_metrics`` alone at thresholds 0.5 and 0.0, once more at 0.0
     under the profiler for the split by stage (``engine/metrics.py``'s
     ranges), and the post-process kernel against its plain version on one
@@ -887,7 +908,7 @@ def phase_eval(dev: torch.device, root: str) -> dict:
                 'window_attention_fwd': n_batches * sum(cfg.backbone_config.depths),
                 'masked_attention_fwd': n_batches * (cfg.decoder_layers - 1),
                 'window_attention_bwd': 0, 'masked_attention_bwd': 0}
-    what = f'swin-large {TRAIN_HW}x{TRAIN_HW} b{EVAL_BATCH} bf16, {EVAL_IMAGES} images'
+    what = f'swin-large {TRAIN_HW}x{TRAIN_HW} b{EVAL_BATCH} f32, {EVAL_IMAGES} images'
 
     def checked(run: str, result: dict) -> dict:
         launched = counts()
@@ -908,7 +929,9 @@ def phase_eval(dev: torch.device, root: str) -> dict:
             f'{1e3 * wall:.1f} ms with the checkpoint and cache loads, peak memory '
             f'{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches {launches}')
 
-        model, _ = load_model(EVAL_MODEL_ID, dev)
+        model = engine_test.load_test_model(resolve_model_path(EVAL_MODEL_ID), dev)
+        check(all(p.dtype == torch.float32 for p in model.parameters()),
+              'the test model is not float32 under COMPUTE_DTYPE bfloat16')
         dataset = PreprocessedDataset(os.path.join(root, 'Processed', 'Test'))
         forward = make_forward_fn(model)
         for threshold in (0.5, 0.0):
@@ -954,13 +977,13 @@ def phase_eval(dev: torch.device, root: str) -> dict:
                               ['pixel_values']).to(dev)
     event_ms = statistics.median(time_ms(lambda: forward(pixels)) for _ in range(5))
     split = device_split(lambda: forward(pixels), runs=3)
-    log(f'eval forward of one batch ({tuple(pixels.shape)}, bf16): {event_ms:.1f} ms '
+    log(f'eval forward of one batch ({tuple(pixels.shape)}, f32): {event_ms:.1f} ms '
         f'(median of 5, CUDA events), device busy {sum(split.values()):.1f} ms; top kernels: '
         + '; '.join(f'{kernel_name(k)[:40]} {ms:.2f} ms' for k, ms in split.most_common(6)))
 
     # one image's post-process as the eval path runs it: the first image's
-    # logits from that forward, (1, Q, 200, 200) bf16 handed to the kernel as
-    # float32, at the eval's target size
+    # logits from that forward, (1, Q, 200, 200) float32, at the eval's
+    # target size
     out = forward(pixels)
     class_logits = out.class_queries_logits[:1]
     mask_logits = out.masks_queries_logits[:1]
@@ -982,6 +1005,205 @@ def phase_eval(dev: torch.device, root: str) -> dict:
         'top launches: ' + '; '.join(f'{kernel_name(k)[:40]} {1e3 * ms:.1f} µs'
                                      for k, ms in split.most_common(6)))
     return launches
+
+
+TRAINER_SPLITS = {'Train': 8, 'Validate': 2, 'Test': 4}
+TRAINER_KEYS = ('start_time', 'dataset_list', 'base_model', 'batch_size', 'learning_rate',
+                'epochs', 'gradient_accumulation', 'max_input_dim', 'preprocessing_time',
+                'data_and_model_loading_time', 'training_history', 'training_time',
+                'test_metrics', 'test_time', 'end_time', 'total_time', 'input_duty_cycle')
+
+
+@contextlib.contextmanager
+def _patched(*targets):
+    """Set each (object, attribute, value) of ``targets``; restore on exit."""
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in targets]
+    for obj, name, value in targets:
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+
+
+def _trainer_config(root: str, arch: str, epochs: int, resume=None) -> tuple:
+    """The config ``engine.train`` reads for a pheno_bench-style cache under
+    ``root``: from scratch (a ``MODEL_CHECKPOINT`` that does not exist),
+    bf16, batch 2, accumulation 2, remat, lr 5e-5."""
+    return ((config, 'MODEL_CHECKPOINT', os.path.join(root, 'no-such-checkpoint')),
+            (config, 'MODEL_ARCH', arch), (config, 'COMPUTE_DTYPE', 'bfloat16'),
+            (config, 'BATCH_SIZE', TRAIN_BATCH), (config, 'GRADIENT_ACCUMULATION', ACCUMULATION),
+            (config, 'REMAT', True), (config, 'EPOCHS', epochs),
+            (config, 'LEARNING_RATE', LEARNING_RATE), (config, 'DATASET_LIST', ['pheno_bench']),
+            (config, 'MODELS_OUTPUT_DIR', os.path.join(root, 'models') + '/'),
+            (config, 'RESUME', resume), (config, 'FORCE_PREPROCESSING', False),
+            (pheno_bench, 'PROCESSED_DIR', os.path.join(root, 'Processed') + '/'))
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files)
+
+
+def phase_trainer(dev: torch.device, root: str) -> dict:
+    """``engine.train`` as a user runs it (``main()``), Swin-L on the card
+    from a pheno_bench-style ``.npz`` cache (Train 8 and Validate 2 at 800²
+    with 10 instances each, Test 4 from 1024² originals), 1 epoch: metadata,
+    history, checkpoints, test metrics and each kernel's launches against
+    the loops' counts; the epoch's img/s, each save's seconds and bytes, the
+    test phase's img/s, peak memory. Then at tiny-test a resume (1 epoch,
+    and ``RESUME`` on to 2) and a ``WISTPU_PROFILE`` run."""
+    t0 = time.perf_counter()
+    n_train, n_val = TRAINER_SPLITS['Train'], TRAINER_SPLITS['Validate']
+    synth = {'Train': Subset(_SynthRaw(16), range(n_train)),
+             'Validate': Subset(_SynthRaw(16), range(n_train, n_train + n_val)),
+             'Test': _SynthEval(TRAINER_SPLITS['Test'])}
+    for split, dataset in synth.items():
+        process_and_save(dataset, os.path.join(root, 'Processed', split))
+    log(f'trainer: pheno_bench-style cache {TRAINER_SPLITS} written in '
+        f'{time.perf_counter() - t0:.1f} s')
+
+    # timings taken around the trainer's own calls
+    spans, saves, tests = [], [], []
+
+    def timed_batches(loader, device):
+        t_start, n = time.perf_counter(), 0
+        for batch in device_batches(loader, device):
+            n += 1
+            yield batch
+        torch.cuda.synchronize(dev)
+        spans.append((loader.shuffle, len(loader.dataset), time.perf_counter() - t_start, n))
+
+    def timed_save(kind, fn):
+        def save(directory, *args, **kwargs):
+            torch.cuda.synchronize(dev)
+            t_start = time.perf_counter()
+            fn(directory, *args, **kwargs)
+            saves.append((kind, os.path.basename(directory), time.perf_counter() - t_start,
+                          _dir_bytes(directory)))
+        return save
+
+    def timed_test(forward, loader, *args, **kwargs):
+        torch.cuda.synchronize(dev)
+        t_start = time.perf_counter()
+        result = metrics.test_with_metrics(forward, loader, *args, **kwargs)
+        torch.cuda.synchronize(dev)
+        tests.append((len(loader.dataset), time.perf_counter() - t_start))
+        return result
+
+    with _patched(*_trainer_config(root, 'swin-large', 1),
+                  (engine_train, 'device_batches', timed_batches),
+                  (engine_train, 'test_with_metrics', timed_test),
+                  (ckpt, 'save_pretrained', timed_save('model', ckpt.save_pretrained)),
+                  (ckpt, 'save_train_checkpoint',
+                   timed_save('train state', ckpt.save_train_checkpoint))):
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        engine_train.main()
+        wall = time.perf_counter() - t0
+        launches = counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    runs = os.listdir(os.path.join(root, 'models', 'mask2former_fine_tuned'))
+    check(len(runs) == 1, f'trainer run directories: {runs}')
+    run_dir = os.path.join(root, 'models', 'mask2former_fine_tuned', runs[0])
+    with open(os.path.join(run_dir, 'metadata.json')) as f:
+        metadata = json.load(f)
+    missing = [key for key in TRAINER_KEYS if key not in metadata]
+    check(not missing, f'trainer metadata lacks {missing} (an exception inside train()?)')
+    history = metadata['training_history']
+    check(len(history) == 1 and all(math.isfinite(history[0][k])
+                                    for k in ('train_loss', 'val_loss')),
+          f'trainer history {history}')
+    for sub in ('best_model', 'final_model', 'train_state'):
+        check(os.path.isdir(os.path.join(run_dir, sub)), f'trainer wrote no {sub}/')
+    best_cfg, best_params = load_pretrained(os.path.join(run_dir, 'best_model'))
+    check(best_cfg.num_labels == TRAIN_LABELS and len(best_params) > 0,
+          'best_model/ does not read back')
+    _check_metric_dict(metadata['test_metrics'], 'trainer test_metrics')
+
+    cfg = config_for_arch('swin-large')
+    blocks, masked = sum(cfg.backbone_config.depths), cfg.decoder_layers - 1
+    micro_steps = -(-TRAINER_SPLITS['Train'] // TRAIN_BATCH)
+    val_batches = -(-TRAINER_SPLITS['Validate'] // TRAIN_BATCH)
+    test_batches = -(-TRAINER_SPLITS['Test'] // TRAIN_BATCH)
+    expected = {'window_attention_fwd': (2 * micro_steps + val_batches + test_batches) * blocks,
+                'window_attention_bwd': micro_steps * blocks,
+                'masked_attention_fwd': (micro_steps + val_batches + test_batches) * masked,
+                'masked_attention_bwd': micro_steps * masked,
+                'fused_upsample_stats': TRAINER_SPLITS['Test']}
+    check(launches == expected, f'trainer launches {launches}, the loops imply {expected}')
+
+    (_, n_train, epoch_s, _), = [s for s in spans if s[0]]
+    (n_test, test_s), = tests
+    log(f'trainer swin-large {TRAIN_HW}x{TRAIN_HW} b{TRAIN_BATCH} bf16 GA{ACCUMULATION} remat, '
+        f'1 epoch of {n_train} images: {n_train / epoch_s:.3f} img/s over {1e3 * epoch_s:.1f} ms, '
+        f'input duty cycle {metadata["input_duty_cycle"]}; loss {history[0]["train_loss"]:.4f}, '
+        f'val loss {history[0]["val_loss"]:.4f}; main() {wall:.1f} s; peak memory {peak:.2f} GiB; '
+        f'launches {launches} (as the loops imply)')
+    for kind, name, seconds, size in saves:
+        log(f'trainer save {name}/ ({kind}): {seconds:.2f} s, {size / 2**20:.0f} MiB, '
+            f'{size / 2**20 / seconds:.0f} MiB/s')
+    log(f'trainer test phase (f32, {n_test} images, threshold 0.5): {n_test / test_s:.3f} img/s '
+        f'over {1e3 * test_s:.1f} ms; map {metadata["test_metrics"]["map"]}; metadata '
+        f'timings: preprocessing {metadata["preprocessing_time"]}, loading '
+        f'{metadata["data_and_model_loading_time"]}, training {metadata["training_time"]}, '
+        f'test {metadata["test_time"]}')
+
+    # resume at tiny-test: 1 epoch, then RESUME on to 2
+    tiny = os.path.join(root, 'tiny')
+    for split, n in (('Train', 3), ('Validate', 2), ('Test', 2)):
+        process_and_save(_tiny_cache_samples(n, split), os.path.join(tiny, 'Processed', split))
+    first, second = os.path.join(tiny, 'first'), os.path.join(tiny, 'second')
+    with _patched(*_trainer_config(tiny, 'tiny-test', 1)):
+        engine_train.train(first, {}, ['pheno_bench'], dev)
+    with _patched(*_trainer_config(tiny, 'tiny-test', 2, resume=first)):
+        resumed = engine_train.train(second, {}, ['pheno_bench'], dev)
+    with open(os.path.join(first, 'train_state', ckpt.TRAIN_META_FILE)) as f:
+        step_first = json.load(f)['step']
+    with open(os.path.join(second, 'train_state', ckpt.TRAIN_META_FILE)) as f:
+        step_second = json.load(f)['step']
+    epochs = [h['epoch'] for h in resumed.get('training_history', [])]
+    # (the resumed run's own directory holds a best_model/, and so a test
+    # phase, only if epoch 2 improved the validation loss, as in JAX)
+    check(epochs == [1, 2] and resumed.get('resumed_from') and 'training_time' in resumed,
+          f'resumed run: history epochs {epochs}, keys {sorted(resumed)}')
+    check(step_second == 2 * step_first == 4, f'micro-steps {step_first} then {step_second}')
+    log(f'trainer resume at tiny-test on the card: history epochs {epochs}, micro-steps '
+        f'{step_first} after epoch 1 and {step_second} after the resumed epoch 2, losses '
+        + ', '.join(f'{h["train_loss"]:.4f}' for h in resumed['training_history']))
+
+    # WISTPU_PROFILE at tiny-test: 3 epochs of 3 micro-steps, 3-8 traced
+    profile_dir = os.path.join(tiny, 'profile')
+    os.environ['WISTPU_PROFILE'] = profile_dir
+    try:
+        with _patched(*_trainer_config(tiny, 'tiny-test', 3), (config, 'BATCH_SIZE', 1)):
+            profiled = engine_train.train(os.path.join(tiny, 'profiled'), {}, ['pheno_bench'], dev)
+    finally:
+        del os.environ['WISTPU_PROFILE']
+    duty = profiled.get('device_duty_profiled')
+    check(duty is not None and 0.0 < duty <= 1.0
+          and os.path.exists(os.path.join(profile_dir, 'trace.json')),
+          f'WISTPU_PROFILE: device_duty_profiled {duty}')
+    log(f'trainer WISTPU_PROFILE at tiny-test: trace of micro-steps 3-8 written, '
+        f'device_duty_profiled {duty}, input_duty_cycle {profiled.get("input_duty_cycle")}')
+    return launches
+
+
+def _tiny_cache_samples(n: int, split: str) -> list:
+    """Tiny 64 x 96 samples (2 rectangles of labels 1 and 2) as a
+    pheno_bench cache holds them."""
+    samples = []
+    for i in range(n):
+        r = np.random.default_rng(300 + i + 10 * len(split))
+        original = np.zeros((64, 96), np.int32)
+        original[8:30, 10:40], original[35:60, 50:90] = 1, 2
+        samples.append({'pixel_values': r.standard_normal((3, 64, 96)).astype(np.float32),
+                        'mask_labels': np.stack([original == 1, original == 2]).astype(np.uint8),
+                        'class_labels': np.asarray([1, 2]), 'target_size': (64, 96),
+                        'original_map': original, 'id_to_semantic': {1: 1, 2: 2},
+                        'file_name': f'{split}_{i:03d}.png'})
+    return samples
 
 
 def _tiny_eval_samples(model, n: int) -> list:
@@ -1220,6 +1442,10 @@ def main() -> int:
     phase_tiny_parity(dev)
     with tempfile.TemporaryDirectory() as root:
         phase_tiny_eval(dev, root)
+    with tempfile.TemporaryDirectory() as root:
+        trainer = phase_trainer(dev, root)
+    for name in KERNELS:
+        check(trainer[name] > 0, f'the trainer run never launched {name}')
 
     path = {'fused_upsample_stats': serving}
     kernels = []
@@ -1228,7 +1454,8 @@ def main() -> int:
         kernels.append({'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
                         'launches': launches,
                         'launches_by_path': {'serving': serving[name], 'training': training[name],
-                                             'eval': evaluation[name]},
+                                             'eval': evaluation[name],
+                                             'trainer': trainer[name]},
                         **timing[name]})
     print(json.dumps({'kernels': kernels}))
     print(card_line())

@@ -375,12 +375,11 @@ def test_metrics_helpers_equal_jax(cache_dir, capsys):
     assert len(out) == 3 and out[1] == out[2]
 
 
-def test_test_model_equals_jax(jax_tiny, tmp_path, monkeypatch):
-    """``engine.test.test_model`` in both packages on a crop_weed-style cache
+def _test_model_both(jax_tiny, tmp_path, monkeypatch):
+    """``engine.test.test_model`` of both packages on a crop_weed-style cache
     (``<PROCESSED_DIR>/Test``), the checkpoint written by the JAX package
-    under a timestamped run and named through ``latest``. Each runs its own
-    forward (float32, threshold 0.5); the id maps differ only at counted
-    zero crossings (0 at this seed) and every key is equal within 1e-6."""
+    under a timestamped run and named through ``latest``; returns the port's
+    and the JAX package's metric dicts and the recorded post-processes."""
     monkeypatch.setenv('WISTPU_POSTPROC_RESIZE', 'matmul')
     seen = _record_post_process(monkeypatch)
     cfg, model, params = jax_tiny
@@ -400,10 +399,33 @@ def test_test_model_equals_jax(jax_tiny, tmp_path, monkeypatch):
     model_id = 'mask2former_fine_tuned/latest/best_model/'
     got = port_test.test_model(model_id, device='cpu')
     want = jax_test.test_model(model_id)
+    return got, want, seen
+
+
+def test_test_model_equals_jax(jax_tiny, tmp_path, monkeypatch):
+    """``engine.test.test_model`` in both packages on a crop_weed-style cache,
+    each running its own forward (float32, threshold 0.5); the id maps differ
+    only at counted zero crossings (0 at this seed) and every key is equal
+    within 1e-6."""
+    got, want, seen = _test_model_both(jax_tiny, tmp_path, monkeypatch)
     assert 0.01 < got['map'] < 0.95
     assert _count_flips(seen) == 0
     _assert_metrics_equal(got, want, atol=1e-6)
 
+    model_id = 'mask2former_fine_tuned/latest/best_model/'
     assert port_test.test_model('mask2former_fine_tuned/none/best_model/', device='cpu') is None
     monkeypatch.setattr(crop_weed, 'PROCESSED_DIR', str(tmp_path / 'nowhere') + '/')
     assert port_test.test_model(model_id, device='cpu') is None
+
+
+def test_test_model_computes_in_float32_at_bf16(jax_tiny, tmp_path, monkeypatch):
+    """With ``COMPUTE_DTYPE = 'bfloat16'`` in both packages, ``engine.test``
+    still builds its model in float32, as the JAX entry point does
+    (``Mask2Former(cfg)`` at its default dtype): the same result as
+    :func:`test_test_model_equals_jax`, at its tolerance."""
+    for cfg_module in (config, jax_config):
+        monkeypatch.setattr(cfg_module, 'COMPUTE_DTYPE', 'bfloat16')
+    got, want, seen = _test_model_both(jax_tiny, tmp_path, monkeypatch)
+    assert 0.01 < got['map'] < 0.95
+    assert _count_flips(seen) == 0
+    _assert_metrics_equal(got, want, atol=1e-6)

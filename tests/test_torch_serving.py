@@ -116,7 +116,7 @@ def test_build_model_runs_on_the_card_unless_asked(monkeypatch):
 
 _BLOCKED_IMPORTS = r'''
 import importlib, pkgutil, sys
-for name in ('jax', 'jaxlib', 'flax', 'optax', 'PIL', 'transformers', 'safetensors',
+for name in ('jax', 'jaxlib', 'flax', 'optax', 'PIL', 'transformers', 'safetensors', 'yaml',
              'weed_instance_segmentation_tpu'):
     sys.modules[name] = None  # any import of these now raises ImportError
 import numpy as np, torch
@@ -163,14 +163,40 @@ config.DATASET_LIST = ['crop_weed']
 definitions.PROCESSED_DIR = os.path.join(root, 'Processed') + '/'
 result = test_model('latest/best_model', device='cpu')
 assert set(result) >= {'map', 'map_50', 'map_75', 'classes'}, result
+# the trainer, one tiny epoch from a pre-written pheno_bench cache, as the
+# card trains (no raw image is read)
+from weed_instance_segmentation_tpu_torch.datasets.pheno_bench import definitions as pheno_bench
+from weed_instance_segmentation_tpu_torch.engine import train
+for split, n in (('Train', 3), ('Validate', 1), ('Test', 1)):
+    process_and_save([{'pixel_values': np.zeros((3, 64, 64), np.float32),
+                       'mask_labels': (original[None, :64, :64] == 1).astype(np.uint8),
+                       'class_labels': np.ones(1, np.int64), 'target_size': (80, 96),
+                       'original_map': original, 'id_to_semantic': {1: 1},
+                       'file_name': f'{split}_{i}.png'} for i in range(n)],
+                     os.path.join(root, 'pheno', 'Processed', split))
+pheno_bench.PROCESSED_DIR = os.path.join(root, 'pheno', 'Processed') + '/'
+for name, value in (('EPOCHS', 1), ('BATCH_SIZE', 2), ('MODEL_ARCH', 'tiny-test'),
+                    ('MODEL_CHECKPOINT', os.path.join(root, 'none'))):
+    setattr(config, name, value)
+metadata = train.train(os.path.join(root, 'run'), {}, ['pheno_bench'], device='cpu')
+assert len(metadata['training_history']) == 1 and 'test_metrics' in metadata, metadata
+# a raw read needs PIL, and raises ImportError at the call without it
+from weed_instance_segmentation_tpu_torch.datasets.base import open_rgb
+try:
+    open_rgb(os.path.join(root, 'image.png'))
+except ImportError:
+    pass
+else:
+    raise AssertionError('open_rgb ran without PIL')
 print('imported', len(names), 'modules')
 '''
 
 
 def test_port_imports_nothing_of_jax():
     """Every port module imports, and a tiny serving call, a tiny train
-    step and a tiny CPU ``engine.test`` over a fixture cache run, with jax,
-    flax, PIL, transformers, safetensors and the JAX package made
+    step, a tiny CPU ``engine.test`` over a fixture cache and one tiny
+    trainer epoch from a pre-written cache run, with jax, flax, PIL,
+    transformers, safetensors, yaml and the JAX package made
     unimportable."""
     env = {**os.environ, 'PYTHONPATH': REPO + os.pathsep + os.environ.get('PYTHONPATH', '')}
     proc = subprocess.run([sys.executable, '-c', _BLOCKED_IMPORTS], cwd=REPO, env=env,

@@ -2,10 +2,9 @@
 
 Port of ``weed_instance_segmentation_tpu/datasets/dataset_utils.py``: the
 same one-``.npz``-per-sample schema and ``_shapes.json`` sidecar, so either
-package reads a cache the other wrote. The constants it reads from the JAX
-package's ``config`` are copied here by value. The JAX package's bit-packed
-wire format (``processing/wire.py``) is not ported: a batch travels as the
-plain ``pad_batch_static`` arrays.
+package reads a cache the other wrote, and the same ``ConcatDataset`` and
+``Subset``. The JAX package's bit-packed wire format (``processing/wire.py``)
+is not ported: a batch travels as the plain ``pad_batch_static`` arrays.
 """
 
 from __future__ import annotations
@@ -16,9 +15,8 @@ import os
 
 import numpy as np
 
-CACHE_SUFFIX = '.npz'
-MAX_INSTANCES = 100
-PAD_TO_MULTIPLE = 32
+from weed_instance_segmentation_tpu_torch import config
+
 SHAPES_SIDECAR = '_shapes.json'
 TRAIN_SAMPLE_KEYS = ('pixel_values', 'mask_labels', 'class_labels')
 
@@ -59,9 +57,9 @@ class PreprocessedDataset:
     def __init__(self, processed_dir: str, keys: tuple[str, ...] | None = None):
         self.processed_dir = processed_dir
         self.keys = keys
-        self.files = sorted(glob.glob(os.path.join(processed_dir, '*' + CACHE_SUFFIX)))
+        self.files = sorted(glob.glob(os.path.join(processed_dir, '*' + config.CACHE_SUFFIX)))
         if not self.files:
-            print(f'WARNING: No {CACHE_SUFFIX} files found in "{processed_dir}"')
+            print(f'WARNING: No {config.CACHE_SUFFIX} files found in "{processed_dir}"')
 
     def __len__(self) -> int:
         return len(self.files)
@@ -71,6 +69,37 @@ class PreprocessedDataset:
             if self.keys is None:
                 return _npz_dict_to_sample(z)
             return {k: z[k] for k in self.keys}
+
+
+class ConcatDataset:
+    """The datasets one after another."""
+
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+        self._offsets = np.cumsum([0] + [len(d) for d in self.datasets])
+
+    def __len__(self) -> int:
+        return int(self._offsets[-1])
+
+    def __getitem__(self, idx: int):
+        if idx < 0:
+            idx += len(self)
+        ds = int(np.searchsorted(self._offsets, idx, side='right')) - 1
+        return self.datasets[ds][idx - int(self._offsets[ds])]
+
+
+class Subset:
+    """The items of ``dataset`` at ``indices``, in that order."""
+
+    def __init__(self, dataset, indices):
+        self.dataset = dataset
+        self.indices = list(indices)
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+    def __getitem__(self, idx: int):
+        return self.dataset[self.indices[idx]]
 
 
 def collate_fn(batch: list[dict]) -> dict:
@@ -107,7 +136,7 @@ def pad_batch_static(batch: list[dict], pad_hw: tuple[int, int],
       sample_valid   (B,)         float32   1 = real sample
     """
     if max_instances is None:
-        max_instances = MAX_INSTANCES
+        max_instances = config.MAX_INSTANCES
     ph, pw = pad_hw
     b = len(batch)
     pixel_values = np.zeros((b, 3, ph, pw), dtype=np.float32)
@@ -168,7 +197,7 @@ def process_and_save(dataset, output_dir: str) -> None:
     for i in range(total):
         item = dataset[i]
         base_name = os.path.splitext(item['file_name'])[0]
-        with open(os.path.join(output_dir, base_name + CACHE_SUFFIX), 'wb') as f:
+        with open(os.path.join(output_dir, base_name + config.CACHE_SUFFIX), 'wb') as f:
             np.savez(f, **_sample_to_npz_dict(item))
         shapes[base_name] = [int(item['pixel_values'].shape[1]),
                              int(item['pixel_values'].shape[2]),
@@ -183,7 +212,7 @@ def compute_static_pad_hw(processed_dirs: list[str],
     """((max H, max W) rounded up to ``multiple``, max instance count) over
     the given caches, from their sidecars (or their arrays where a cache has
     no sidecar)."""
-    multiple = multiple or PAD_TO_MULTIPLE
+    multiple = multiple or config.PAD_TO_MULTIPLE
     max_h = max_w = max_i = 1
     for d in processed_dirs:
         sidecar = os.path.join(d, SHAPES_SIDECAR)

@@ -33,6 +33,11 @@ class DataLoader:
         self.prefetch = prefetch
         self._epoch = 0
 
+    def set_epoch(self, epoch: int) -> None:
+        """The next pass draws epoch ``epoch``'s order (seed + epoch), so a
+        run resumed at epoch k sees the batches an uninterrupted run would."""
+        self._epoch = int(epoch)
+
     def __len__(self) -> int:
         return -(-len(self.dataset) // self.batch_size)
 

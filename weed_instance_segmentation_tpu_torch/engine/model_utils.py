@@ -1,11 +1,13 @@
 """Model construction: architecture presets, seeded initialisation, and
 loading a saved model.
 
-Port of ``config_for_arch``, the from-scratch branch of ``build_model``,
-``resolve_model_path`` and ``load_model`` in
-``weed_instance_segmentation_tpu/engine/model_utils.py``. ``load_model``
-returns the model and its config: the image processor (PIL) comes with the
-raw-data slice, and plotting with the tail of the port.
+Port of ``config_for_arch``, ``build_model``, ``resolve_model_path``,
+``load_model`` and ``default_processor`` in
+``weed_instance_segmentation_tpu/engine/model_utils.py``. The JAX
+``build_model`` is :func:`build_model_for_labels` here (a local checkpoint
+directory, else ``config.MODEL_ARCH`` from scratch); :func:`build_model`
+builds an architecture from scratch. ``load_model`` returns the model and
+its config; plotting comes with the tail of the port.
 
 Initialisation follows the flax initialisers of the JAX package, drawn from
 one seeded ``torch.Generator`` (the numbers differ from ``jax.random``'s):
@@ -33,6 +35,9 @@ from weed_instance_segmentation_tpu_torch.models.pixel_decoder import (
 )
 from weed_instance_segmentation_tpu_torch.models.transformer_decoder import (
     DecoderLayer, MaskPredictor, MultiheadAttention, TransformerModule,
+)
+from weed_instance_segmentation_tpu_torch.processing.image_processor import (
+    Mask2FormerImageProcessor,
 )
 
 
@@ -89,11 +94,11 @@ def init_weights(model: Mask2Former, seed: int = 0) -> None:
             nn.init.zeros_(p)
 
 
-def _device(device: str | torch.device, caller: str) -> torch.device:
+def require_device(device: str | torch.device, caller: str) -> torch.device:
     device = torch.device(device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(f'{caller}: no CUDA device is available; pass device=\'cpu\' '
-                           'to build the model on the CPU')
+                           'to run on the CPU')
     return device
 
 
@@ -108,7 +113,7 @@ def build_model(arch: str, num_labels: int, dtype: torch.dtype = torch.float32,
     parameters, the AdamW master copy; the bf16 compute comes from the train
     step's autocast, as the JAX package's ``dtype=bf16, param_dtype=f32``
     pair. ``remat`` as :class:`Mask2Former` takes it."""
-    device = _device(device, 'build_model')
+    device = require_device(device, 'build_model')
     if train and dtype != torch.float32:
         raise ValueError(f'a training model keeps float32 parameters, got dtype={dtype}')
     cfg = config_for_arch(arch, num_labels=num_labels)
@@ -117,6 +122,69 @@ def build_model(arch: str, num_labels: int, dtype: torch.dtype = torch.float32,
     model.to_empty(device='cpu')
     init_weights(model, seed)
     return model.to(device=device, dtype=dtype).train(train)
+
+
+def _set_labels(cfg: Mask2FormerConfig, id2label: dict, label2id: dict | None) -> None:
+    cfg.id2label = id2label
+    cfg.label2id = label2id or {v: k for k, v in id2label.items()}
+    cfg.num_labels = len(id2label)
+
+
+def build_model_for_labels(id2label: dict, label2id: dict | None = None,
+                           checkpoint: str | None = None, seed: int = 0,
+                           device: str | torch.device = 'cuda'
+                           ) -> tuple[Mask2Former, Mask2FormerConfig]:
+    """A training model (train mode, float32 parameters, ``config.REMAT``)
+    for the labels ``id2label``, on ``device``, and its config.
+
+    Where ``checkpoint`` (default ``config.MODEL_CHECKPOINT``) is a local
+    directory, its weights are loaded and its labels replaced by these; when
+    the label count differs, the class head is initialised anew from
+    ``seed`` (the HF ``ignore_mismatched_sizes``). Otherwise
+    ``config.MODEL_ARCH`` is initialised from ``seed``: nothing is
+    downloaded."""
+    device = require_device(device, 'build_model_for_labels')
+    checkpoint = checkpoint if checkpoint is not None else config.MODEL_CHECKPOINT
+    if not os.path.isdir(checkpoint):
+        print(f'Checkpoint {checkpoint!r} is not a local directory — initializing '
+              f'{config.MODEL_ARCH} from scratch.')
+        model = build_model(config.MODEL_ARCH, len(id2label), device=device, seed=seed,
+                            train=True, remat=config.REMAT)
+        _set_labels(model.config, id2label, label2id)
+        return model, model.config
+
+    cfg, state_dict = ckpt.load_pretrained(checkpoint)
+    mismatched = len(id2label) != cfg.num_labels
+    if mismatched:
+        print(f'Reinitializing class head: checkpoint has {cfg.num_labels} labels, '
+              f'requested {len(id2label)} (ignore_mismatched_sizes).')
+    _set_labels(cfg, id2label, label2id)
+    with torch.device('meta'):
+        model = Mask2Former(cfg, remat=config.REMAT)
+    if mismatched:
+        model.to_empty(device='cpu')
+        init_weights(model, seed)
+        state_dict = {k: v for k, v in state_dict.items() if not k.startswith('class_predictor.')}
+        missing, unexpected = model.load_state_dict(state_dict, strict=False)
+        if unexpected or any(not k.startswith('class_predictor.') for k in missing):
+            raise ValueError(f'checkpoint {checkpoint!r} does not fit its config: '
+                             f'missing {missing}, unexpected {unexpected}')
+    else:
+        model.load_state_dict(state_dict, strict=True, assign=True)
+    return model.to(device=device, dtype=torch.float32).train(), cfg
+
+
+def default_processor(checkpoint: str | None = None) -> Mask2FormerImageProcessor:
+    """The processor of ``checkpoint`` (default ``config.MODEL_CHECKPOINT``)
+    where it is a directory holding one, else the HF Mask2Former defaults
+    with ``config.SHORTEST_EDGE``/``LONGEST_EDGE``."""
+    checkpoint = checkpoint if checkpoint is not None else config.MODEL_CHECKPOINT
+    if os.path.exists(os.path.join(checkpoint, 'preprocessor_config.json')):
+        return Mask2FormerImageProcessor.from_pretrained(checkpoint)
+    return Mask2FormerImageProcessor(
+        size={'shortest_edge': config.SHORTEST_EDGE, 'longest_edge': config.LONGEST_EDGE},
+        ignore_index=None,  # the readers pass ignore_index=255 per call
+    )
 
 
 def _compute_dtype() -> torch.dtype:
@@ -147,7 +215,7 @@ def model_from_state_dict(cfg: Mask2FormerConfig, state_dict: dict,
                           device: str | torch.device = 'cuda') -> Mask2Former:
     """An eval-mode ``Mask2Former`` of ``cfg`` holding ``state_dict`` (every
     key filled, none left over), on ``device`` in ``dtype``."""
-    device = _device(device, 'model_from_state_dict')
+    device = require_device(device, 'model_from_state_dict')
     with torch.device('meta'):
         model = Mask2Former(cfg)
     model.load_state_dict(state_dict, strict=True, assign=True)

@@ -7,8 +7,10 @@ Port of ``weed_instance_segmentation_tpu/engine/steps.py``:
   decoupled update as the JAX package's ``optax.adamw``.
 - Gradient accumulation with ``optax.MultiSteps`` semantics: the update uses
   the mean of ``gradient_accumulation`` micro-step gradients and happens on
-  every k-th call; parameters are untouched in between, and Adam's step count
-  counts updates only.
+  every k-th call; parameters are untouched in between, Adam's step count
+  counts updates only, and a cycle runs on across epochs.
+- Each micro-step's random draws (point sampling and drop path) come from a
+  generator seeded from (seed, micro-step), :func:`step_draws`.
 - The forward runs under ``torch.autocast`` in ``compute_dtype`` when that is
   not float32 (float32 parameters, the master copy); the criterion runs in
   float32; the MSDA core keeps float32 coordinates (models/pixel_decoder.py).
@@ -27,6 +29,7 @@ from __future__ import annotations
 import contextlib
 from typing import Callable
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -67,41 +70,65 @@ def make_loss_fn(model: torch.nn.Module, cfg: Mask2FormerConfig,
     return loss_fn
 
 
-def make_train_step(model: torch.nn.Module, cfg: Mask2FormerConfig,
-                    optimizer: torch.optim.Optimizer, gradient_accumulation: int = 1,
-                    compute_dtype: torch.dtype = torch.float32) -> Callable:
+def step_draws(seed: int, index: int, device: str | torch.device) -> PointDraws:
+    """The draws of call ``index`` of a step seeded ``seed``: a generator on
+    ``device`` seeded from the pair, as the JAX package folds the step into
+    its key (``jax.random.fold_in``), so the draws of a call depend on its
+    index alone and a resumed run repeats an uninterrupted one's."""
+    key = int(np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)[0])
+    return PointDraws(torch.Generator(device=device).manual_seed(key))
+
+
+class TrainStep:
     """(batch, draws=None) → loss of this micro-batch (a detached scalar).
 
     One micro-batch per call; the optimizer steps on every
     ``gradient_accumulation``-th call with the mean gradient, which stays in
     each parameter's ``.grad`` until the next cycle's first backward. The
-    step's random numbers come from the call's ``draws``, or else from one
-    :class:`PointDraws` on the model's device, seeded 0, that the step keeps."""
-    if gradient_accumulation < 1:
-        raise ValueError(f'gradient_accumulation must be >= 1, got {gradient_accumulation}')
-    loss_fn = make_loss_fn(model, cfg, compute_dtype)
-    params = [p for p in model.parameters() if p.requires_grad]
-    default_draws = PointDraws(torch.Generator(device=params[0].device).manual_seed(0))
-    micro_steps = 0
+    call's random numbers come from its ``draws``, or else from
+    ``step_draws(seed, micro_steps)``. ``micro_steps`` (the calls taken, JAX
+    ``TrainState.step``) and ``mini_step`` (the position in the
+    accumulation cycle, ``optax.MultiSteps``' ``mini_step``) are what the
+    train checkpoint saves and restores, with the parameters' ``.grad``."""
 
-    def train_step(batch: dict, draws: PointDraws | None = None) -> torch.Tensor:
-        nonlocal micro_steps
-        if micro_steps % gradient_accumulation == 0:
-            optimizer.zero_grad(set_to_none=True)
-        loss, _ = loss_fn(batch, draws or default_draws)
+    def __init__(self, model: torch.nn.Module, cfg: Mask2FormerConfig,
+                 optimizer: torch.optim.Optimizer, gradient_accumulation: int = 1,
+                 compute_dtype: torch.dtype = torch.float32, seed: int = 0):
+        if gradient_accumulation < 1:
+            raise ValueError(f'gradient_accumulation must be >= 1, got {gradient_accumulation}')
+        self.loss_fn = make_loss_fn(model, cfg, compute_dtype)
+        self.optimizer = optimizer
+        self.gradient_accumulation = gradient_accumulation
+        self.seed = seed
+        self.params = [p for p in model.parameters() if p.requires_grad]
+        self.micro_steps = 0
+        self.mini_step = 0
+
+    def __call__(self, batch: dict, draws: PointDraws | None = None) -> torch.Tensor:
+        if self.mini_step == 0:
+            self.optimizer.zero_grad(set_to_none=True)
+        if draws is None:
+            draws = step_draws(self.seed, self.micro_steps, self.params[0].device)
+        loss, _ = self.loss_fn(batch, draws)
         with record_function('backward'):
             loss.backward()
-        micro_steps += 1
-        if micro_steps % gradient_accumulation == 0:
+        self.micro_steps += 1
+        self.mini_step = (self.mini_step + 1) % self.gradient_accumulation
+        if self.mini_step == 0:
             with record_function('optimizer'):
-                if gradient_accumulation > 1:
-                    for p in params:
+                if self.gradient_accumulation > 1:
+                    for p in self.params:
                         if p.grad is not None:
-                            p.grad.div_(gradient_accumulation)
-                optimizer.step()
+                            p.grad.div_(self.gradient_accumulation)
+                self.optimizer.step()
         return loss.detach()
 
-    return train_step
+
+def make_train_step(model: torch.nn.Module, cfg: Mask2FormerConfig,
+                    optimizer: torch.optim.Optimizer, gradient_accumulation: int = 1,
+                    compute_dtype: torch.dtype = torch.float32, seed: int = 0) -> TrainStep:
+    """The :class:`TrainStep` of ``model``."""
+    return TrainStep(model, cfg, optimizer, gradient_accumulation, compute_dtype, seed)
 
 
 def make_eval_step(model: torch.nn.Module, cfg: Mask2FormerConfig,

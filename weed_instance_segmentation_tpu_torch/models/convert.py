@@ -76,28 +76,47 @@ def params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     return state_dict
 
 
+def flax_path(full: str, ndim: int) -> list[str]:
+    """The flax path of the ``state_dict`` entry ``full`` of rank ``ndim``."""
+    *path, name = full.split('.')
+    if name == 'weight':
+        if ndim not in (1, 2, 4):
+            raise ValueError(f'weight of rank {ndim} has no flax layout rule')
+        name = 'scale' if ndim == 1 else 'kernel'
+    return path + [name]
+
+
+def flax_leaf(full: str, tensor: torch.Tensor) -> tuple[list[str], np.ndarray]:
+    """One ``state_dict`` entry (or a tensor of a parameter's shape keyed by
+    its name: a gradient, an optimizer moment) → (flax path, float32 numpy
+    array in the flax layout)."""
+    value = tensor.detach().cpu().float().numpy()
+    path = flax_path(full, value.ndim)
+    if path[-1] == 'kernel':
+        value = value.T if value.ndim == 2 else value.transpose(2, 3, 1, 0)
+    return path, np.ascontiguousarray(value)
+
+
+def torch_leaf(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
+    """The inverse of :func:`flax_leaf` for one leaf: flax path joined by
+    '/' → (``state_dict`` name, array in the torch layout)."""
+    *prefix, name = path.split('/')
+    name, array = _leaf(name, np.asarray(value))
+    return '.'.join(prefix + [name]), array
+
+
 def state_dict_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """Flat ``state_dict`` (or gradients keyed the same way) → nested flax
     tree of float32 numpy arrays; the inverse of :func:`params_from_jax`."""
     tree: dict = {}
     for full, tensor in state_dict.items():
-        *path, name = full.split('.')
-        value = tensor.detach().cpu().float().numpy()
-        if name == 'weight':
-            if value.ndim == 2:
-                name, value = 'kernel', value.T
-            elif value.ndim == 4:
-                name, value = 'kernel', value.transpose(2, 3, 1, 0)
-            elif value.ndim == 1:
-                name = 'scale'
-            else:
-                raise ValueError(f'weight of rank {value.ndim} has no flax layout rule')
+        (*path, name), value = flax_leaf(full, tensor)
         node = tree
         for key in path:
             node = node.setdefault(key, {})
         if name in node:
             raise ValueError(f'two entries map to the flax leaf {full!r}')
-        node[name] = np.ascontiguousarray(value)
+        node[name] = value
     return tree
 
 

@@ -1,6 +1,11 @@
-"""Resize primitives with torch ``F.interpolate`` semantics.
+"""Resize primitives: PIL's on the host, torch ``F.interpolate``'s on the
+device.
 
-Counterpart of ``weed_instance_segmentation_tpu/ops/resize.py`` (device part):
+Counterpart of ``weed_instance_segmentation_tpu/ops/resize.py``. The host
+pair (:func:`pil_resize_image`, :func:`pil_resize_mask`) is what the image
+processor and the dataset readers resize with; each imports PIL when called,
+so this module imports without it. The device functions have
+``F.interpolate``'s semantics:
 
 - bilinear with ``align_corners=False`` and no antialiasing — the 384² logit
   upsample of the post-process (HF:image_processing_mask2former.py:1122-1124),
@@ -17,6 +22,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def pil_resize_image(image: np.ndarray, size_hw: tuple[int, int]) -> np.ndarray:
+    """Bilinear-resize an HWC uint8 image exactly as PIL does (antialiased)."""
+    from PIL import Image
+
+    h, w = size_hw
+    return np.asarray(Image.fromarray(image).resize((w, h), resample=Image.BILINEAR))
+
+
+def pil_resize_mask(mask: np.ndarray, size_hw: tuple[int, int]) -> np.ndarray:
+    """Nearest-resize a 2-D integer map exactly as PIL does (mode I)."""
+    from PIL import Image
+
+    h, w = size_hw
+    pil = Image.fromarray(mask.astype(np.int32), mode='I')
+    return np.asarray(pil.resize((w, h), resample=Image.NEAREST)).astype(mask.dtype)
 
 
 def _bilinear_weights(in_size: int, out_size: int):
