@@ -23,7 +23,11 @@ Phases, each of which must pass (the script exits non-zero on any failure):
    (f32 on the CUDA-core kernels, bf16 on the tensor-core kernels, forward
    and backward), each level's times under ``by_s`` in the summary, and the
    bf16 forward at the serving batch (B 4, S 10000) under
-   ``serving_b4_s10000``;
+   ``serving_b4_s10000``; and the MSDA value gradient at the training shape
+   (value (2, 13125, 8, 32) bf16): how many float32 sums the former
+   ``index_add_`` changed between 10 calls, the port's fixed-order sums the
+   same bits on every call and through two backward calls, and each one's
+   device ms;
 4. serving: Swin-L Mask2Former, 800², batch 4, bf16, random seeded weights;
    3 requests of uint8 (4, 1024, 1024, 3) through ``make_serving_fn``; each
    must launch 24 window-attention, 9 masked-attention and 1 post-process
@@ -53,7 +57,14 @@ Phases, each of which must pass (the script exits non-zero on any failure):
    masked-attention forwards a batch and one post-process an image; then
    one batch's forward alone (event-timed, and its device-busy time by
    kernel) and one image's post-process at the 1024² target (device time,
-   the kernel's share);
+   the kernel's share); then inference on the same model directory, loaded
+   by ``load_model`` in bf16: ``run_inference_array`` on 1 warm-up and 4
+   timed 800² uint8 images (each an (800, 800) id map with valid segments),
+   ``score_images`` over the 8-image cache (8 per-image mAPs in ascending
+   order), each kernel's launches equal to 24 window-attention, 9
+   masked-attention and 1 post-process forwards an image, a split of one
+   image's time by stage, and a tiny-test image through
+   ``run_inference_array`` on the card against the CPU in float32;
 7. tiny-test in float32 on the card against the same model on the CPU (the
    plain path): the serving function, one train step with the same random
    draws, and ``test_with_metrics`` at threshold 0.0 over a small cache
@@ -111,16 +122,20 @@ from weed_instance_segmentation_tpu_torch.engine import test as engine_test
 from weed_instance_segmentation_tpu_torch.engine import train as engine_train
 from weed_instance_segmentation_tpu_torch.engine.checkpoint import load_pretrained, save_pretrained
 from weed_instance_segmentation_tpu_torch.engine.export import make_serving_fn
+from weed_instance_segmentation_tpu_torch.engine.inference import run_inference_array
 from weed_instance_segmentation_tpu_torch.engine.model_utils import (
-    build_model, config_for_arch, resolve_model_path,
+    build_model, config_for_arch, load_model, resolve_model_path,
 )
+from weed_instance_segmentation_tpu_torch.engine.show_worst_predictions import score_images
 from weed_instance_segmentation_tpu_torch.engine.steps import (
     make_forward_fn, make_optimizer, make_train_step,
 )
 from weed_instance_segmentation_tpu_torch.evaluation import mean_ap
 from weed_instance_segmentation_tpu_torch.losses.criterion import PointDraws
 from weed_instance_segmentation_tpu_torch.models import transformer_decoder
+from weed_instance_segmentation_tpu_torch.models.pixel_decoder import reference_points_constant
 from weed_instance_segmentation_tpu_torch.models.swin import shifted_window_attn_mask
+from weed_instance_segmentation_tpu_torch.ops import deformable_attention
 from weed_instance_segmentation_tpu_torch.ops.cuda_build import build_libraries, build_log
 from weed_instance_segmentation_tpu_torch.ops.masked_attention import (
     masked_attention, masked_attention_plain,
@@ -133,6 +148,9 @@ from weed_instance_segmentation_tpu_torch.ops.window_attention import (
     window_attention, window_attention_plain,
 )
 from weed_instance_segmentation_tpu_torch.processing.fused import fused_preprocess
+from weed_instance_segmentation_tpu_torch.processing.image_processor import (
+    Mask2FormerImageProcessor,
+)
 from weed_instance_segmentation_tpu_torch.processing.postprocess import (
     SCORE_RESOLUTION, post_process_instance_arrays,
 )
@@ -581,6 +599,94 @@ def _masked_forward_serving(dev: torch.device) -> dict:
     return _summary(t, bound_, err)
 
 
+MSDA_SHAPES = ((25, 25), (50, 50), (100, 100))  # Swin-L's encoder levels at 800²
+MSDA_HEADS, MSDA_POINTS, MSDA_HEAD_DIM, MSDA_CALLS = 8, 4, 32, 10
+
+
+def msda_inputs(dev: torch.device) -> tuple:
+    """The deformable encoder's MSDA inputs at training batch 2, 800², in
+    bf16 as autocast forms them: value (2, 13125, 8, 32), locations within a
+    few cells of each query's reference point, softmaxed weights, and a
+    cotangent of the output's shape."""
+    l_total = sum(h * w for h, w in MSDA_SHAPES)
+    g = torch.Generator(device=dev).manual_seed(21)
+    value = torch.randn((TRAIN_BATCH, l_total, MSDA_HEADS, MSDA_HEAD_DIM), generator=g,
+                        device=dev).bfloat16()
+    ref = torch.from_numpy(reference_points_constant(MSDA_SHAPES)).to(dev)
+    shape = (TRAIN_BATCH, l_total, MSDA_HEADS, len(MSDA_SHAPES), MSDA_POINTS)
+    locations = (ref[None, :, None, None, None, :]
+                 + 0.02 * torch.randn((*shape, 2), generator=g, device=dev)).bfloat16()
+    weights = torch.softmax(torch.randn((*shape[:3], shape[3] * shape[4]), generator=g,
+                                        device=dev), dim=-1).reshape(shape).bfloat16()
+    cot = torch.randn((TRAIN_BATCH, l_total, MSDA_HEADS * MSDA_HEAD_DIM), generator=g,
+                      device=dev).bfloat16()
+    return value, locations, weights, cot
+
+
+def _value_grad_taps(cot, value, locations, weights) -> list:
+    """The value gradient's 12 tap sets (3 levels x 4 bilinear corners) as
+    the port forms them: (flat-table row of each tap, its product in the
+    value dtype widened to float32)."""
+    b, l_total, heads, d = value.shape
+    g = cot.reshape(b, l_total, heads, 1, d)
+    return [(idx.reshape(-1), (g * wgt[..., None]).float().reshape(-1, d))
+            for idx, wgt in deformable_attention._taps(MSDA_SHAPES, l_total, b, heads,
+                                                       locations.float(), weights.float(),
+                                                       value.dtype)]
+
+
+def _summed(taps, rows: int, add) -> torch.Tensor:
+    table = torch.zeros((rows, MSDA_HEAD_DIM), dtype=torch.float32, device=taps[0][1].device)
+    for idx, products in taps:
+        add(table, idx, products)
+    return table
+
+
+def phase_msda_value_grad(dev: torch.device) -> dict:
+    """The MSDA value gradient at the training shape: how many float32 sums
+    differ between calls of the former ``index_add_`` (atomics on the
+    card), and the port's fixed-order sums (``ops/deformable_attention.py::
+    value_grad_sums``) the same bits on every call, through the backward
+    too; the two within float32 rounding of each other; the device ms per
+    call of the sums alone, each way, and of the whole value gradient."""
+    value, locations, weights, cot = msda_inputs(dev)
+    args = (cot, value.shape, value.dtype, MSDA_SHAPES, locations, weights)
+    taps = _value_grad_taps(cot, value, locations, weights)
+    rows = value.shape[0] * value.shape[1] * value.shape[2]
+
+    def index_add(table, idx, products):
+        table.index_add_(0, idx, products)
+
+    old = [_summed(taps, rows, index_add) for _ in range(MSDA_CALLS)]
+    differ = [int((t != old[0]).sum()) for t in old[1:]]
+    old_max = max(float((t - old[0]).abs().max()) for t in old[1:])
+    bf16_differ = max(int((t.bfloat16() != old[0].bfloat16()).sum()) for t in old[1:])
+    log(f'MSDA value gradient at training b{TRAIN_BATCH} {TRAIN_HW}² (value {tuple(value.shape)} '
+        f'bf16, {old[0].numel()} float32 sums): index_add_ over {MSDA_CALLS} calls, against the '
+        f'first: {min(differ)}-{max(differ)} sums differ, by at most {old_max:.3e}; '
+        f'{bf16_differ} differ after the cast to bf16')
+    new = [deformable_attention.value_grad_sums(*args) for _ in range(MSDA_CALLS)]
+    check(all(torch.equal(t, new[0]) for t in new[1:]),
+          'the fixed-order MSDA value-gradient sums differ between calls')
+    scale = float(old[0].abs().max())
+    err = float((new[0] - old[0]).abs().max())
+    check(err <= 1e-5 * scale, f'fixed-order sums differ from index_add_ by {err:.3e} of {scale:.3e}')
+    grads = []
+    for _ in range(2):
+        v = value.detach().requires_grad_(True)
+        deformable_attention.msda(v, MSDA_SHAPES, locations, weights).backward(cot)
+        grads.append(v.grad)
+    check(torch.equal(*grads), 'two MSDA backward calls gave different value-gradient bits')
+    del old, new, grads
+    ms = {'index_add_ sums': device_ms(lambda: _summed(taps, rows, index_add)),
+          'fixed-order sums': device_ms(lambda: _summed(taps, rows, deformable_attention._add_rows)),
+          'whole value gradient': device_ms(lambda: deformable_attention.value_grad_sums(*args))}
+    log(f'MSDA value gradient, fixed order: the same bits over {MSDA_CALLS} calls and through two '
+        f'backward calls; against index_add_ max abs diff {err:.3e} (largest sum {scale:.3e}); '
+        'device ms per call (12 tap sets): ' + ', '.join(f'{k} {v:.4f}' for k, v in ms.items()))
+    return {'sums_differing': max(differ), 'max_abs_diff': old_max, 'device_ms': ms}
+
+
 def check_result(res: dict, batch: int, hw: tuple, num_queries: int) -> None:
     check(set(res) == {'segmentation', 'segment_ids', 'labels', 'scores', 'valid'},
           f'result keys {sorted(res)}')
@@ -793,10 +899,13 @@ def phase_training(dev: torch.device, cache_dir: str) -> dict:
     trace_path = os.path.join(cache_dir, 'trace.json')
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as f:
-        device_ms, host_ms, by_kernel = trace_split(json.load(f), STEP_RANGES)
+        trace = json.load(f)
+    device_ms, host_ms, by_kernel = trace_split(trace, STEP_RANGES)
+    value_grad_ms = trace_split(trace, (deformable_attention.VALUE_GRAD_RANGE,))[0]
     busy = sum(device_ms.values())
     log(f'traced 2 micro-steps (one update): {wall:.1f} ms wall, {busy:.1f} ms device busy, '
-        f'idle share {max(0.0, 1 - busy / wall):.3f}')
+        f'idle share {max(0.0, 1 - busy / wall):.3f}; the MSDA value-gradient sums '
+        f'{value_grad_ms[deformable_attention.VALUE_GRAD_RANGE]:.2f} device ms')
     log('split by the step\'s ranges, summed over both micro-steps: device busy ms '
         + ', '.join(f'{k} {v:.1f}' for k, v in device_ms.items()) + '; host ms '
         + ', '.join(f'{k} {v:.1f}' for k, v in host_ms.items()))
@@ -1005,6 +1114,160 @@ def phase_eval(dev: torch.device, root: str) -> dict:
         'top launches: ' + '; '.join(f'{kernel_name(k)[:40]} {1e3 * ms:.1f} µs'
                                      for k, ms in split.most_common(6)))
     return launches
+
+
+INFER_IMAGES = 4
+
+
+def _check_inference_result(res: dict, hw: tuple, num_labels: int, what: str) -> None:
+    """An (H, W) id map whose ids are all in ``segments_info`` (a kept
+    segment may be covered entirely by later ones, as in HF), distinct ids
+    0, 1, … in order, labels below ``num_labels``, scores in [0, 1]."""
+    seg = res['segmentation']
+    check(seg.shape == hw and np.isfinite(seg).all(), f'{what}: id map {seg.shape}')
+    info = res['segments_info']
+    check([s['id'] for s in info] == list(range(len(info))), f'{what}: ids {info}')
+    ids = {int(v) for v in np.unique(seg)} - {-1}
+    check(ids <= {s['id'] for s in info}, f'{what}: map ids {ids} not in segments_info')
+    for s in info:
+        check(0 <= s['label_id'] < num_labels and 0.0 <= s['score'] <= 1.0, f'{what}: {s}')
+
+
+def phase_inference(dev: torch.device, root: str) -> dict:
+    """The inspection entry points' compute half on phase_eval's Swin-L
+    model directory, loaded by ``load_model`` in bf16 (``COMPUTE_DTYPE``):
+    ``engine/inference.py::run_inference_array`` on 1 warm-up and 4 timed
+    800² uint8 images (no resize runs, so no PIL), then
+    ``engine/show_worst_predictions.py::score_images`` over phase_eval's
+    8-image Test cache; each kernel's launches against the loops' count
+    (window forward 24, masked forward 9, post-process 1 an image); then the
+    tiny-test card-vs-CPU check of ``run_inference_array``."""
+    card = card_line()
+    with _eval_config(root):
+        model_dir = resolve_model_path(EVAL_MODEL_ID)
+        # a trained model directory holds its processor; phase_eval's has none
+        Mask2FormerImageProcessor(size={'shortest_edge': TRAIN_HW, 'longest_edge': 1333}
+                                  ).save_pretrained(model_dir)
+        t0 = time.perf_counter()
+        model, cfg = load_model(EVAL_MODEL_ID, dev)
+        processor = ckpt.load_processor(model_dir)
+        load_s = time.perf_counter() - t0
+    check(all(p.dtype == torch.bfloat16 for p in model.parameters()),
+          'load_model under COMPUTE_DTYPE bfloat16 did not give a bf16 model')
+    forward = make_forward_fn(model)
+    rng = np.random.default_rng(7)
+    images = [rng.integers(0, 256, (TRAIN_HW, TRAIN_HW, 3), dtype=np.uint8)
+              for _ in range(INFER_IMAGES + 1)]
+    dataset = PreprocessedDataset(os.path.join(root, 'Processed', 'Test'))
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    run_inference_array(images[0], forward, processor, dev)
+    warm_ms = 1e3 * (time.perf_counter() - t0)
+    times, kept = [], []
+    for i, image in enumerate(images[1:]):
+        t0 = time.perf_counter()
+        resized, res = run_inference_array(image, forward, processor, dev)
+        times.append(time.perf_counter() - t0)  # the result is on the host: synchronised
+        check(resized is image, f'inference image {i} was resized')
+        _check_inference_result(res, (TRAIN_HW, TRAIN_HW), cfg.num_labels, f'inference image {i}')
+        kept.append(len(res['segments_info']))
+    infer_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    scored = score_images(forward, dataset, dev)
+    score_s = time.perf_counter() - t0
+    launches = counts()
+    score_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    stage_ms = _inference_stages(images[1], forward, processor, dev)  # after the count
+    scores = [c['score'] for c in scored]
+    check(len(scores) == EVAL_IMAGES and scores == sorted(scores)
+          and all(0.0 <= v <= 1.0 for v in scores), f'worst-prediction scores {scores}')
+    images_run = INFER_IMAGES + 1 + EVAL_IMAGES
+    expected = {'fused_upsample_stats': images_run,
+                'window_attention_fwd': images_run * sum(cfg.backbone_config.depths),
+                'masked_attention_fwd': images_run * (cfg.decoder_layers - 1),
+                'window_attention_bwd': 0, 'masked_attention_bwd': 0}
+    check(launches == expected, f'inference launches {launches}, the loops imply {expected}')
+    log(f'inference swin-large {TRAIN_HW}x{TRAIN_HW} bf16 (run_inference_array, batch 1): '
+        f'{INFER_IMAGES / sum(times):.3f} img/s over {INFER_IMAGES} images, median '
+        f'{1e3 * statistics.median(times):.1f} ms ({", ".join(f"{1e3 * t:.1f}" for t in times)}; '
+        f'warm-up {warm_ms:.1f}), segments kept {kept}, peak memory {infer_peak:.2f} GiB; '
+        f'model load {load_s:.1f} s; card {card}')
+    log(f'worst-prediction scoring (score_images, bf16, batch 1, threshold 0.5) over '
+        f'{EVAL_IMAGES} cached images: {EVAL_IMAGES / score_s:.3f} img/s over '
+        f'{1e3 * score_s:.1f} ms, peak memory {score_peak:.2f} GiB, scores {scores}; '
+        f'card {card}')
+    log(f'inference path launches {launches} ({images_run} images: as the loops imply)')
+    log('inference of one image by stage, host ms (each synchronised; median of 3): '
+        + ', '.join(f'{k} {v:.1f}' for k, v in stage_ms.items()))
+    del model, forward
+    torch.cuda.empty_cache()
+    _tiny_inference_parity(dev)
+    return launches
+
+
+def _inference_stages(image: np.ndarray, forward, processor, dev: torch.device) -> dict:
+    """One image through ``run_inference_array``'s stages, each timed on
+    the host and synchronised (median of 3): the processor, the copy to the
+    card, the forward, the post-process with its copies back; and the
+    forward's device-busy ms."""
+    times = collections.defaultdict(list)
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pixels = processor(images=image, return_tensors='np')['pixel_values']
+        t1 = time.perf_counter()
+        on_card = torch.from_numpy(pixels).to(dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = forward(on_card)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        metrics.post_process_instance_segmentation(out, target_sizes=[image.shape[:2]])
+        t4 = time.perf_counter()
+        for name, a, b in (('processor', t0, t1), ('copy in', t1, t2), ('forward', t2, t3),
+                           ('post-process', t3, t4)):
+            times[name].append(1e3 * (b - a))
+    stages = {name: statistics.median(ts) for name, ts in times.items()}
+    stages['forward device busy'] = device_ms(lambda: forward(on_card), runs=3)
+    return stages
+
+
+def _tiny_inference_parity(dev: torch.device) -> None:
+    """tiny-test f32 (TF32 off): ``run_inference_array`` of one 64 x 96
+    image on the card and on the CPU: the same ids and labels, scores within
+    1e-4, id maps equal on at least 99.9 % of the pixels."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu_model = build_model('tiny-test', num_labels=3, device='cpu', seed=0)
+    with torch.no_grad():
+        # favour class 0 and sharpen the masks (10x mask logits; the decoder's
+        # attention masks read only their sign), so that slots pass the 0.5
+        # threshold well clear of it
+        cpu_model.class_predictor.bias.copy_(torch.tensor([4.0, 0.0, -1.0, 0.0]))
+        embedder = cpu_model.transformer_module.mask_predictor.mask_embedder_2
+        embedder.weight.mul_(10.0)
+        embedder.bias.mul_(10.0)
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    processor = Mask2FormerImageProcessor(size={'shortest_edge': 64, 'longest_edge': 96})
+    image = np.random.default_rng(8).integers(0, 256, (64, 96, 3), dtype=np.uint8)
+    launches = fused_upsample_stats.launches
+    _, want = run_inference_array(image, make_forward_fn(cpu_model), processor, 'cpu')
+    _, got = run_inference_array(image, make_forward_fn(gpu_model), processor, dev)
+    check(fused_upsample_stats.launches == launches + 1, 'tiny-test inference did not launch '
+                                                         'the post-process kernel')
+    key = [(s['id'], s['label_id']) for s in want['segments_info']]
+    check(len(key) >= 1, 'no segment kept at tiny-test')
+    check([(s['id'], s['label_id']) for s in got['segments_info']] == key,
+          f'tiny-test inference segments differ: {got["segments_info"]} vs {want["segments_info"]}')
+    score_err = max(abs(a['score'] - b['score'])
+                    for a, b in zip(got['segments_info'], want['segments_info']))
+    check(score_err <= 1e-4, f'tiny-test inference scores differ by {score_err}')
+    agree = float((got['segmentation'] == want['segmentation']).mean())
+    check(agree >= 0.999, f'tiny-test inference id maps agree on {agree:.5f} of the pixels')
+    log(f'tiny-test f32 inference, card vs CPU: {len(key)} segments, ids and labels equal, '
+        f'scores max abs err {score_err:.2e}, id maps equal on {agree:.5f} of the pixels')
 
 
 TRAINER_SPLITS = {'Train': 8, 'Validate': 2, 'Test': 4}
@@ -1427,18 +1690,21 @@ def main() -> int:
     timing = {'fused_upsample_stats': phase_postprocess_kernel(dev)}
     timing.update(phase_window_attention(dev))
     timing.update(phase_masked_attention(dev))
+    phase_msda_value_grad(dev)
 
     serving = phase_serving(dev)
     with tempfile.TemporaryDirectory() as cache_dir:
         training = phase_training(dev, cache_dir)
     with tempfile.TemporaryDirectory() as root:
         evaluation = phase_eval(dev, root)
+        inference = phase_inference(dev, root)
     for name in ('window_attention_fwd', 'window_attention_bwd', 'masked_attention_fwd',
                  'masked_attention_bwd'):
         check(training[name] > 0, f'the training run never launched {name}')
     check(serving['fused_upsample_stats'] > 0, 'the serving run never launched the post-process')
     for name in ('fused_upsample_stats', 'window_attention_fwd', 'masked_attention_fwd'):
         check(evaluation[name] > 0, f'the eval run never launched {name}')
+        check(inference[name] > 0, f'the inference run never launched {name}')
     phase_tiny_parity(dev)
     with tempfile.TemporaryDirectory() as root:
         phase_tiny_eval(dev, root)
@@ -1455,6 +1721,7 @@ def main() -> int:
                         'launches': launches,
                         'launches_by_path': {'serving': serving[name], 'training': training[name],
                                              'eval': evaluation[name],
+                                             'inference': inference[name],
                                              'trainer': trainer[name]},
                         **timing[name]})
     print(json.dumps({'kernels': kernels}))

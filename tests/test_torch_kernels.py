@@ -782,3 +782,31 @@ def test_tiled_bf16_window_forward_arithmetic_matches_plain(case, shifted):
     if mask is not None:
         scores = scores + mask.repeat(q.shape[0] // mask.shape[0], 1, 1)[:, None]
     assert (lse - torch.logsumexp(scores, dim=-1)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_msda_value_grad_same_bits_on_card(cuda_device):
+    """The MSDA value gradient on the card at bf16, with hundreds of taps on
+    each value row: the same bits from two backward calls (its float32 sums
+    are added in a fixed order), and within one bf16 rounding of the CPU's
+    serially summed gradient."""
+    from weed_instance_segmentation_tpu_torch.ops.deformable_attention import msda
+
+    shapes = ((6, 7), (3, 4))
+    g = torch.Generator().manual_seed(5)
+    b, q, heads, d, points = 2, 300, 2, 8, 4
+    value = torch.randn((b, sum(h * w for h, w in shapes), heads, d), generator=g).bfloat16()
+    locations = (torch.rand((b, q, heads, len(shapes), points, 2), generator=g) * 1.2 - 0.1
+                 ).bfloat16()
+    weights = torch.softmax(torch.randn((b, q, heads, len(shapes) * points), generator=g), -1
+                            ).reshape(b, q, heads, len(shapes), points).bfloat16()
+    cot = torch.randn((b, q, heads * d), generator=g).bfloat16()
+    grads = []
+    for device in ('cpu', cuda_device, cuda_device):
+        v = value.detach().clone().to(device).requires_grad_(True)
+        msda(v, shapes, locations.to(device), weights.to(device)).backward(cot.to(device))
+        grads.append(v.grad.cpu())
+    cpu, first, second = grads
+    assert torch.equal(first, second)
+    err = (first.float() - cpu.float()).abs()
+    assert (err <= 2 ** -7 * cpu.float().abs() + 1e-6).all(), err.max().item()

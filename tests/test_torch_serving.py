@@ -116,8 +116,8 @@ def test_build_model_runs_on_the_card_unless_asked(monkeypatch):
 
 _BLOCKED_IMPORTS = r'''
 import importlib, pkgutil, sys
-for name in ('jax', 'jaxlib', 'flax', 'optax', 'PIL', 'transformers', 'safetensors', 'yaml',
-             'weed_instance_segmentation_tpu'):
+for name in ('jax', 'jaxlib', 'flax', 'optax', 'PIL', 'matplotlib', 'transformers',
+             'safetensors', 'yaml', 'weed_instance_segmentation_tpu'):
     sys.modules[name] = None  # any import of these now raises ImportError
 import numpy as np, torch
 import weed_instance_segmentation_tpu_torch as pkg
@@ -163,6 +163,34 @@ config.DATASET_LIST = ['crop_weed']
 definitions.PROCESSED_DIR = os.path.join(root, 'Processed') + '/'
 result = test_model('latest/best_model', device='cpu')
 assert set(result) >= {'map', 'map_50', 'map_75', 'classes'}, result
+# the inspection entry points' compute half: inference on an array at the
+# processor's output size (no resize runs) and the worst-prediction scoring
+# over the cache; reading an image file and drawing need PIL and matplotlib
+from weed_instance_segmentation_tpu_torch.datasets.dataset_utils import PreprocessedDataset
+from weed_instance_segmentation_tpu_torch.engine import inference
+from weed_instance_segmentation_tpu_torch.engine.model_utils import load_model, plot_segmentation
+from weed_instance_segmentation_tpu_torch.engine.show_worst_predictions import score_images
+from weed_instance_segmentation_tpu_torch.engine.steps import make_forward_fn
+from weed_instance_segmentation_tpu_torch.processing.image_processor import (
+    Mask2FormerImageProcessor,
+)
+model, cfg = load_model('run/best_model', device='cpu')
+processor = Mask2FormerImageProcessor(size={'shortest_edge': 64, 'longest_edge': 96})
+image = np.random.default_rng(1).integers(0, 256, (64, 96, 3), dtype=np.uint8)
+resized, res = inference.run_inference_array(image, make_forward_fn(model), processor, 'cpu')
+assert resized is image and res['segmentation'].shape == (64, 96), res['segmentation'].shape
+scored = score_images(make_forward_fn(model),
+                      PreprocessedDataset(os.path.join(root, 'Processed', 'Test')), 'cpu')
+assert len(scored) == 3 and [c['score'] for c in scored] == sorted(c['score'] for c in scored)
+for call in (lambda: inference.run_inference(os.path.join(root, 'image.png'),
+                                             make_forward_fn(model), processor, 'cpu'),
+             lambda: plot_segmentation(image, res)):
+    try:
+        call()
+    except ImportError:
+        pass
+    else:
+        raise AssertionError('an image was read or drawn without PIL or matplotlib')
 # the trainer, one tiny epoch from a pre-written pheno_bench cache, as the
 # card trains (no raw image is read)
 from weed_instance_segmentation_tpu_torch.datasets.pheno_bench import definitions as pheno_bench
@@ -194,10 +222,11 @@ print('imported', len(names), 'modules')
 
 def test_port_imports_nothing_of_jax():
     """Every port module imports, and a tiny serving call, a tiny train
-    step, a tiny CPU ``engine.test`` over a fixture cache and one tiny
+    step, a tiny CPU ``engine.test`` over a fixture cache, a tiny
+    ``run_inference_array`` and worst-prediction scoring, and one tiny
     trainer epoch from a pre-written cache run, with jax, flax, PIL,
-    transformers, safetensors, yaml and the JAX package made
-    unimportable."""
+    matplotlib, transformers, safetensors, yaml and the JAX package made
+    unimportable; reading an image file or drawing raises ImportError."""
     env = {**os.environ, 'PYTHONPATH': REPO + os.pathsep + os.environ.get('PYTHONPATH', '')}
     proc = subprocess.run([sys.executable, '-c', _BLOCKED_IMPORTS], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)

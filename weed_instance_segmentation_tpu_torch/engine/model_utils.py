@@ -2,12 +2,13 @@
 loading a saved model.
 
 Port of ``config_for_arch``, ``build_model``, ``resolve_model_path``,
-``load_model`` and ``default_processor`` in
+``load_model``, ``default_processor`` and ``plot_segmentation`` in
 ``weed_instance_segmentation_tpu/engine/model_utils.py``. The JAX
 ``build_model`` is :func:`build_model_for_labels` here (a local checkpoint
 directory, else ``config.MODEL_ARCH`` from scratch); :func:`build_model`
 builds an architecture from scratch. ``load_model`` returns the model and
-its config; plotting comes with the tail of the port.
+its config. :func:`plot_segmentation` imports matplotlib when called, so the
+module imports without it.
 
 Initialisation follows the flax initialisers of the JAX package, drawn from
 one seeded ``torch.Generator`` (the numbers differ from ``jax.random``'s):
@@ -23,6 +24,7 @@ from __future__ import annotations
 import math
 import os
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -232,3 +234,70 @@ def load_model(model_id: str, device: str | torch.device = 'cuda'
     the CPU."""
     cfg, state_dict = ckpt.load_pretrained(resolve_model_path(model_id))
     return model_from_state_dict(cfg, state_dict, _compute_dtype(), device), cfg
+
+
+def plot_segmentation(
+    image,
+    result: dict,
+    id2label: dict | None = None,
+    score_threshold: float = 0.5,
+    color_by_class: bool = False,
+    ax=None,
+    title: str = 'Instance Segmentation',
+    show: bool = True,
+):
+    """Draw ``result``'s instances over ``image``: a translucent fill and a
+    contour each, and a legend of label and score (tab20 colours for up to
+    20 instances, else nipy_spectral). Segments scoring below
+    ``score_threshold`` are left out. Draws into ``ax``, or a new figure."""
+    import matplotlib
+
+    if not os.environ.get('DISPLAY'):
+        matplotlib.use('Agg')
+    import matplotlib.pyplot as plt
+    from matplotlib import patches as mpatches
+
+    segmentation = np.asarray(result['segmentation'])
+    segments_info = [
+        s for s in result['segments_info'] if s.get('score', 1.0) >= score_threshold
+    ]
+
+    own_fig = ax is None
+    if own_fig:
+        _, ax = plt.subplots(figsize=(10, 8))
+    ax.imshow(np.asarray(image))
+    ax.set_title(title)
+    ax.axis('off')
+
+    n = len(segments_info)
+    if n <= 20:
+        cmap = matplotlib.colormaps['tab20']
+        colors = [cmap(i % 20) for i in range(max(n, 1))]
+    else:
+        cmap = matplotlib.colormaps['nipy_spectral']
+        colors = [cmap(i / max(n - 1, 1)) for i in range(n)]
+
+    legend_handles = []
+    class_color: dict[int, tuple] = {}
+    for i, info in enumerate(segments_info):
+        mask = segmentation == info['id']
+        if color_by_class:
+            color = class_color.setdefault(info['label_id'], colors[len(class_color) % len(colors)])
+        else:
+            color = colors[i]
+        overlay = np.zeros((*mask.shape, 4))
+        overlay[mask] = (*color[:3], 0.45)
+        ax.imshow(overlay)
+        ax.contour(mask, levels=[0.5], colors=[color], linewidths=1.5)
+        label = (
+            id2label.get(info['label_id'], str(info['label_id']))
+            if id2label else str(info['label_id'])
+        )
+        legend_handles.append(
+            mpatches.Patch(color=color, label=f"{label} ({info.get('score', 0):.2f})")
+        )
+    if legend_handles:
+        ax.legend(handles=legend_handles, loc='upper right', fontsize=8)
+    if own_fig and show:
+        plt.show()
+    return ax

@@ -22,14 +22,13 @@ Backward, split as the JAX package's custom VJP splits it
   rows are not fetched twice);
 - value gradient: each tap's product of cotangent and rounded tap weight,
   in the value dtype as autograd of the fused form forms it, added into a
-  float32 table with ``index_add_`` and cast to the value dtype once. The
+  float32 table in a fixed order and cast to the value dtype once. The
   JAX package also sums in float32 (``ops/msda_transpose.py``); autograd of
   ``table[idx]`` would add every tap into a table of the value dtype,
-  rounding each partial sum to bf16. The order of the sum is not fixed on
-  the card: ``index_add_`` adds with atomics there, so two calls may differ
-  in the last bits of the float32 sums (a fixed-order sum comes with the
-  MSDA backward kernel). The dense separable einsum of the JAX package is a
-  TPU workaround for row-serial scatters and is not ported.
+  rounding each partial sum to bf16. The order is fixed on every device, so
+  two calls give the same bits (:func:`_add_rows`). The dense separable
+  einsum of the JAX package is a TPU workaround for row-serial scatters and
+  is not ported.
 
 The JAX package has no Pallas kernel for MSDA; a hand-written Hopper kernel
 is queued in ROADMAP.md.
@@ -38,6 +37,11 @@ is queued in ROADMAP.md.
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
+
+# the profiler range of the value gradient's sums (a trace's device time
+# for them is the work launched inside it)
+VALUE_GRAD_RANGE = 'msda value-gradient sum'
 
 
 def _taps(spatial_shapes: tuple, l_total: int, b: int, heads: int,
@@ -85,9 +89,23 @@ def _msda_fused(value, spatial_shapes, sampling_locations, attention_weights):
     return out.reshape(b, q, heads * head_dim)
 
 
-def _value_grad(g, value_shape, dtype, spatial_shapes, locations, weights):
-    """Cotangent (B, Q, heads·D) → the value gradient (B, L_total, heads, D):
-    each tap's product in ``dtype``, summed into float32, cast once."""
+def _add_rows(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> None:
+    """``table[idx[i]] += rows[i]`` for every i, in the order of i. On the
+    card ``index_put_`` with ``accumulate`` sorts the indices (a stable
+    sort) and adds each run of equal ones in order; ``index_add_`` would add
+    with atomics there, in an order that changes from call to call. On the
+    CPU ``index_add_`` adds serially."""
+    with record_function(VALUE_GRAD_RANGE):
+        if table.is_cuda:
+            table.index_put_((idx,), rows, accumulate=True)
+        else:
+            table.index_add_(0, idx, rows)
+
+
+def value_grad_sums(g, value_shape, dtype, spatial_shapes, locations, weights):
+    """Cotangent (B, Q, heads·D) → the value gradient's float32 sums, a
+    (B·heads·L_total, D) table in the flat-table row order: each tap's
+    product in ``dtype``, added in a fixed order."""
     b, l_total, heads, head_dim = value_shape
     _, q, _, _, points, _ = locations.shape
     g = g.to(dtype).reshape(b, q, heads, 1, head_dim)
@@ -95,7 +113,15 @@ def _value_grad(g, value_shape, dtype, spatial_shapes, locations, weights):
     for idx, wgt in _taps(spatial_shapes, l_total, b, heads, locations.float(), weights.float(),
                           dtype):
         taps = (g * wgt[..., None]).float()  # the product rounded to dtype, as autograd forms it
-        table.index_add_(0, idx.reshape(-1), taps.reshape(-1, head_dim))
+        _add_rows(table, idx.reshape(-1), taps.reshape(-1, head_dim))
+    return table
+
+
+def _value_grad(g, value_shape, dtype, spatial_shapes, locations, weights):
+    """Cotangent (B, Q, heads·D) → the value gradient (B, L_total, heads, D):
+    :func:`value_grad_sums` cast to ``dtype`` once."""
+    b, l_total, heads, head_dim = value_shape
+    table = value_grad_sums(g, value_shape, dtype, spatial_shapes, locations, weights)
     return table.reshape(b, heads, l_total, head_dim).transpose(1, 2).to(dtype)
 
 

@@ -32,6 +32,13 @@ always forms them): the metric path reads only the id map.
 Top-k order: ``lax.top_k`` in the JAX package returns values sorted
 descending, the lower index first on ties; a stable descending sort gives
 the same order (``torch.topk`` on CUDA promises no tie order).
+
+Class probabilities take the class logits' dtype, as ``jax.nn.softmax``
+does in the JAX package: at bf16 (the inference entry points' compute
+dtype) the probabilities, their top-k order and the threshold cut are those
+of bf16 values (:func:`class_probabilities`). The serving function casts
+its logits to float32 first, as the JAX serving function does, and the
+evaluation path's model computes in float32.
 """
 
 from __future__ import annotations
@@ -61,6 +68,17 @@ class InstanceSegmentationResult(NamedTuple):
     masks: Optional[torch.Tensor]  # (B, Q, H, W) bool at target size, or None
 
 
+def class_probabilities(logits: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis in the dtype of ``logits``, with the
+    JAX package's roundings: its compiled post-process rounds each
+    ``exp(x - max)`` to the logits' dtype for the quotient but sums the
+    unrounded exps in float32, rounds the sum to that dtype and rounds the
+    quotient once (at float32 every rounding is exact)."""
+    e = torch.exp((logits - logits.amax(dim=-1, keepdim=True)).float())
+    total = e.sum(dim=-1, keepdim=True).to(logits.dtype).float()
+    return (e.to(logits.dtype).float() / total).to(logits.dtype)
+
+
 def _sampled_rows(in_size: int, out_size: int) -> np.ndarray:
     """Source indices the target grid's nearest resize reads, deduplicated."""
     return np.unique(nearest_indices(in_size, out_size))
@@ -73,9 +91,11 @@ def post_process_instance_arrays(
     threshold: float = 0.5,
     with_masks: bool = True,
 ) -> InstanceSegmentationResult:
-    """Inputs (B, Q, C+1) and (B, Q, Hm, Wm) float32; returns fixed-size
-    batch-leading arrays. ``with_masks=False`` (the serving path) skips the
-    (B, Q, H, W) target-size masks."""
+    """Inputs (B, Q, C+1) and (B, Q, Hm, Wm), float32 or bf16 (the mask
+    logits are upsampled in float32; the class probabilities take the class
+    logits' dtype); returns fixed-size batch-leading arrays.
+    ``with_masks=False`` (the serving path) skips the (B, Q, H, W)
+    target-size masks."""
     th, tw = target_size
     sh, sw = SCORE_RESOLUTION
     dev = class_queries_logits.device
@@ -100,7 +120,7 @@ def post_process_instance_arrays(
     if num_queries >= 2 ** 15 - 1:
         raise ValueError(f'{num_queries} queries overflow the int16 slot map')
     num_classes = num_classes_p1 - 1
-    scores = torch.softmax(class_queries_logits.float(), dim=-1)[..., :-1]
+    scores = class_probabilities(class_queries_logits)[..., :-1]
     flat = scores.reshape(b, -1)
     sorted_scores, order = torch.sort(flat, dim=-1, descending=True, stable=True)
     top_scores, top_idx = sorted_scores[:, :num_queries], order[:, :num_queries]
