@@ -24,10 +24,8 @@ Phases, each of which must pass (the script exits non-zero on any failure):
    and backward), each level's times under ``by_s`` in the summary, and the
    bf16 forward at the serving batch (B 4, S 10000) under
    ``serving_b4_s10000``; and the MSDA value gradient at the training shape
-   (value (2, 13125, 8, 32) bf16): how many float32 sums the former
-   ``index_add_`` changed between 10 calls, the port's fixed-order sums the
-   same bits on every call and through two backward calls, and each one's
-   device ms;
+   (value (2, 13125, 8, 32) bf16): its fixed-order float32 sums the same
+   bits over 10 calls and through two backward calls, and their device ms;
 4. serving: Swin-L Mask2Former, 800², batch 4, bf16, random seeded weights;
    3 requests of uint8 (4, 1024, 1024, 3) through ``make_serving_fn``; each
    must launch 24 window-attention, 9 masked-attention and 1 post-process
@@ -58,13 +56,20 @@ Phases, each of which must pass (the script exits non-zero on any failure):
    one batch's forward alone (event-timed, and its device-busy time by
    kernel) and one image's post-process at the 1024² target (device time,
    the kernel's share); then inference on the same model directory, loaded
-   by ``load_model`` in bf16: ``run_inference_array`` on 1 warm-up and 4
-   timed 800² uint8 images (each an (800, 800) id map with valid segments),
+   by ``load_model`` in bf16, with class 0's bias raised and the mask
+   embedder sharpened so that slots pass the 0.5 threshold:
+   ``run_inference_array`` on 1 warm-up and 4 timed 800² uint8 images (each
+   an (800, 800) id map with valid segments, at least one kept),
    ``score_images`` over the 8-image cache (8 per-image mAPs in ascending
    order), each kernel's launches equal to 24 window-attention, 9
    masked-attention and 1 post-process forwards an image, a split of one
-   image's time by stage, and a tiny-test image through
-   ``run_inference_array`` on the card against the CPU in float32;
+   image's time by stage, that image's bf16 logits post-processed on the
+   card and on the CPU (the same segments), both attention kernels' bf16
+   forwards against their plain versions at the path's batch-1 shapes
+   (masked at S 10000, 2500, 625; window shifted at stage 1, NW 289, H 6,
+   and stage 3, NW 25, H 24), and a tiny-test image through
+   ``run_inference_array`` on the card against the CPU in float32, its bf16
+   logits through the post-process on both;
 7. tiny-test in float32 on the card against the same model on the CPU (the
    plain path): the serving function, one train step with the same random
    draws, and ``test_with_metrics`` at threshold 0.0 over a small cache
@@ -103,6 +108,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -152,7 +158,7 @@ from weed_instance_segmentation_tpu_torch.processing.image_processor import (
     Mask2FormerImageProcessor,
 )
 from weed_instance_segmentation_tpu_torch.processing.postprocess import (
-    SCORE_RESOLUTION, post_process_instance_arrays,
+    SCORE_RESOLUTION, class_probabilities, post_process_instance_arrays,
 )
 
 LIBRARIES = ('postprocess_stats', 'window_attention', 'masked_attention')
@@ -420,6 +426,17 @@ def _sdpa(scale):
     return call
 
 
+def _forward_err(what: str, kernel, plain, qkv, consts, tol: float = 2e-2) -> float:
+    """The kernel's bf16 forward against the plain version in float32 on
+    the same (bf16-rounded) q, k, v: the largest error within ``tol`` of
+    the plain output's largest magnitude. Returns the largest abs error."""
+    qkv = [x.to(torch.bfloat16) for x in qkv]
+    err, rel = _rel_errors(kernel(*qkv, *consts), plain(*(x.float() for x in qkv), *consts))
+    log(f'{what}: out rel err {rel:.2e} (tolerance {tol:g})')
+    check(rel <= tol, f'{what}: {rel:.3e} beyond {tol}')
+    return err
+
+
 def _timing_line(what: str, t: dict, bound_: dict) -> str:
     dev = t['device']
     return (f'  {what}: kernel {t["kernel"]:.4f} ms, plain {t["plain"]:.4f} ms, SDPA '
@@ -514,12 +531,10 @@ def _window_forward_serving(dev: torch.device) -> dict:
     result = {}
     for stage, (images, hp, heads) in SERVING_WINDOW_STAGES.items():
         q, k, v, bias, mask = window_inputs(dev, images, hp, heads)
+        err = _forward_err(f'window attention forward at {stage}: NW={q.shape[0]}, H={heads}, '
+                           'bf16 shifted', window_attention, window_attention_plain, (q, k, v),
+                           (bias, mask))
         qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
-        err, rel = _rel_errors(window_attention(qb, kb, vb, bias, mask),
-                               window_attention_plain(qb.float(), kb.float(), vb.float(), bias, mask))
-        log(f'window attention forward at {stage}: NW={q.shape[0]}, H={heads}, bf16 shifted: '
-            f'out rel err {rel:.2e} (tolerance 0.02)')
-        check(rel <= 2e-2, f'window forward at {stage}: {rel:.3e} beyond 0.02')
         full_mask = (bias[None] + mask.repeat(images, 1, 1)[:, None]).to(torch.bfloat16)
         fns = {'plain': lambda: window_attention_plain(qb, kb, vb, bias, mask),
                'kernel': lambda: window_attention(qb, kb, vb, bias, mask),
@@ -581,12 +596,9 @@ def _masked_forward_serving(dev: torch.device) -> dict:
     """The bf16 forward alone at the serving batch: B 4, H 8, Q 200, S 10000."""
     b, heads, nq, s, d = SERVING_BATCH, 8, 200, 10000, 32
     q, k, v, mask = masked_inputs(dev, b, s, heads, nq, d)
+    err = _forward_err(f'masked attention forward at the serving batch B={b}, S={s}, bf16',
+                       masked_attention, masked_attention_plain, (q, k, v), (mask,))
     q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
-    err, rel = _rel_errors(masked_attention(q, k, v, mask),
-                           masked_attention_plain(q.float(), k.float(), v.float(), mask))
-    log(f'masked attention forward at the serving batch B={b}, S={s}, bf16: out rel err '
-        f'{rel:.2e} (tolerance 0.02)')
-    check(rel <= 2e-2, f'masked forward at B {b}: {rel:.3e} beyond 0.02')
     bias = torch.zeros(mask.shape, dtype=torch.bfloat16, device=dev).masked_fill_(mask, -1e9)
     fns = {'plain': lambda: masked_attention_plain(q, k, v, mask),
            'kernel': lambda: masked_attention(q, k, v, mask),
@@ -623,68 +635,27 @@ def msda_inputs(dev: torch.device) -> tuple:
     return value, locations, weights, cot
 
 
-def _value_grad_taps(cot, value, locations, weights) -> list:
-    """The value gradient's 12 tap sets (3 levels x 4 bilinear corners) as
-    the port forms them: (flat-table row of each tap, its product in the
-    value dtype widened to float32)."""
-    b, l_total, heads, d = value.shape
-    g = cot.reshape(b, l_total, heads, 1, d)
-    return [(idx.reshape(-1), (g * wgt[..., None]).float().reshape(-1, d))
-            for idx, wgt in deformable_attention._taps(MSDA_SHAPES, l_total, b, heads,
-                                                       locations.float(), weights.float(),
-                                                       value.dtype)]
-
-
-def _summed(taps, rows: int, add) -> torch.Tensor:
-    table = torch.zeros((rows, MSDA_HEAD_DIM), dtype=torch.float32, device=taps[0][1].device)
-    for idx, products in taps:
-        add(table, idx, products)
-    return table
-
-
 def phase_msda_value_grad(dev: torch.device) -> dict:
-    """The MSDA value gradient at the training shape: how many float32 sums
-    differ between calls of the former ``index_add_`` (atomics on the
-    card), and the port's fixed-order sums (``ops/deformable_attention.py::
-    value_grad_sums``) the same bits on every call, through the backward
-    too; the two within float32 rounding of each other; the device ms per
-    call of the sums alone, each way, and of the whole value gradient."""
+    """The MSDA value gradient at the training shape: the port's
+    fixed-order float32 sums (``ops/deformable_attention.py::
+    value_grad_sums``) the same bits over ``MSDA_CALLS`` calls and through
+    two backward calls, and their device ms per call."""
     value, locations, weights, cot = msda_inputs(dev)
     args = (cot, value.shape, value.dtype, MSDA_SHAPES, locations, weights)
-    taps = _value_grad_taps(cot, value, locations, weights)
-    rows = value.shape[0] * value.shape[1] * value.shape[2]
-
-    def index_add(table, idx, products):
-        table.index_add_(0, idx, products)
-
-    old = [_summed(taps, rows, index_add) for _ in range(MSDA_CALLS)]
-    differ = [int((t != old[0]).sum()) for t in old[1:]]
-    old_max = max(float((t - old[0]).abs().max()) for t in old[1:])
-    bf16_differ = max(int((t.bfloat16() != old[0].bfloat16()).sum()) for t in old[1:])
-    log(f'MSDA value gradient at training b{TRAIN_BATCH} {TRAIN_HW}² (value {tuple(value.shape)} '
-        f'bf16, {old[0].numel()} float32 sums): index_add_ over {MSDA_CALLS} calls, against the '
-        f'first: {min(differ)}-{max(differ)} sums differ, by at most {old_max:.3e}; '
-        f'{bf16_differ} differ after the cast to bf16')
-    new = [deformable_attention.value_grad_sums(*args) for _ in range(MSDA_CALLS)]
-    check(all(torch.equal(t, new[0]) for t in new[1:]),
-          'the fixed-order MSDA value-gradient sums differ between calls')
-    scale = float(old[0].abs().max())
-    err = float((new[0] - old[0]).abs().max())
-    check(err <= 1e-5 * scale, f'fixed-order sums differ from index_add_ by {err:.3e} of {scale:.3e}')
+    sums = [deformable_attention.value_grad_sums(*args) for _ in range(MSDA_CALLS)]
+    differ = max(int((t != sums[0]).sum()) for t in sums[1:])
+    check(differ == 0, f'{differ} MSDA value-gradient sums differ between calls')
     grads = []
     for _ in range(2):
         v = value.detach().requires_grad_(True)
         deformable_attention.msda(v, MSDA_SHAPES, locations, weights).backward(cot)
         grads.append(v.grad)
     check(torch.equal(*grads), 'two MSDA backward calls gave different value-gradient bits')
-    del old, new, grads
-    ms = {'index_add_ sums': device_ms(lambda: _summed(taps, rows, index_add)),
-          'fixed-order sums': device_ms(lambda: _summed(taps, rows, deformable_attention._add_rows)),
-          'whole value gradient': device_ms(lambda: deformable_attention.value_grad_sums(*args))}
-    log(f'MSDA value gradient, fixed order: the same bits over {MSDA_CALLS} calls and through two '
-        f'backward calls; against index_add_ max abs diff {err:.3e} (largest sum {scale:.3e}); '
-        'device ms per call (12 tap sets): ' + ', '.join(f'{k} {v:.4f}' for k, v in ms.items()))
-    return {'sums_differing': max(differ), 'max_abs_diff': old_max, 'device_ms': ms}
+    ms = device_ms(lambda: deformable_attention.value_grad_sums(*args))
+    log(f'MSDA value gradient at training b{TRAIN_BATCH} {TRAIN_HW}² (value {tuple(value.shape)} '
+        f'bf16, {sums[0].numel()} float32 sums, 12 tap sets): {differ} sums differ over '
+        f'{MSDA_CALLS} calls, the same bits through two backward calls; {ms:.4f} device ms a call')
+    return {'sums_differing': differ, 'device_ms': ms}
 
 
 def check_result(res: dict, batch: int, hw: tuple, num_queries: int) -> None:
@@ -1117,6 +1088,8 @@ def phase_eval(dev: torch.device, root: str) -> dict:
 
 
 INFER_IMAGES = 4
+INFER_WINDOW_STAGES = {  # Swin-L at 800², batch 1: (images, padded map side, heads)
+    'stage1_b1': (1, 204, 6), 'stage3_b1': (1, 60, 24)}
 
 
 def _check_inference_result(res: dict, hw: tuple, num_labels: int, what: str) -> None:
@@ -1154,6 +1127,9 @@ def phase_inference(dev: torch.device, root: str) -> dict:
         load_s = time.perf_counter() - t0
     check(all(p.dtype == torch.bfloat16 for p in model.parameters()),
           'load_model under COMPUTE_DTYPE bfloat16 did not give a bf16 model')
+    class_bias = torch.zeros(cfg.num_labels + 1)
+    class_bias[0] = 4.0
+    _keep_slots(model, class_bias)
     forward = make_forward_fn(model)
     rng = np.random.default_rng(7)
     images = [rng.integers(0, 256, (TRAIN_HW, TRAIN_HW, 3), dtype=np.uint8)
@@ -1173,6 +1149,7 @@ def phase_inference(dev: torch.device, root: str) -> dict:
         check(resized is image, f'inference image {i} was resized')
         _check_inference_result(res, (TRAIN_HW, TRAIN_HW), cfg.num_labels, f'inference image {i}')
         kept.append(len(res['segments_info']))
+        check(kept[-1] >= 1, f'inference image {i} kept no segment')
     infer_peak = torch.cuda.max_memory_allocated(dev) / 2**30
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -1190,11 +1167,18 @@ def phase_inference(dev: torch.device, root: str) -> dict:
                 'masked_attention_fwd': images_run * (cfg.decoder_layers - 1),
                 'window_attention_bwd': 0, 'masked_attention_bwd': 0}
     check(launches == expected, f'inference launches {launches}, the loops imply {expected}')
+    pixels = processor(images=images[1], return_tensors='np')['pixel_values']
+    parity = _postprocess_card_vs_cpu(forward(torch.from_numpy(pixels).to(dev)),
+                                      (TRAIN_HW, TRAIN_HW), 'swin-large image 1')
+    kernel_errs = _inference_kernel_checks(dev)
     log(f'inference swin-large {TRAIN_HW}x{TRAIN_HW} bf16 (run_inference_array, batch 1): '
         f'{INFER_IMAGES / sum(times):.3f} img/s over {INFER_IMAGES} images, median '
         f'{1e3 * statistics.median(times):.1f} ms ({", ".join(f"{1e3 * t:.1f}" for t in times)}; '
         f'warm-up {warm_ms:.1f}), segments kept {kept}, peak memory {infer_peak:.2f} GiB; '
-        f'model load {load_s:.1f} s; card {card}')
+        f'model load {load_s:.1f} s; bf16 forward max abs err against the plain version at '
+        f'its batch-1 shapes: '
+        + ', '.join(f'{k} {v:.3e}' for k, v in kernel_errs.items()) + f'; card {card}')
+    log(parity)
     log(f'worst-prediction scoring (score_images, bf16, batch 1, threshold 0.5) over '
         f'{EVAL_IMAGES} cached images: {EVAL_IMAGES / score_s:.3f} img/s over '
         f'{1e3 * score_s:.1f} ms, peak memory {score_peak:.2f} GiB, scores {scores}; '
@@ -1241,14 +1225,7 @@ def _tiny_inference_parity(dev: torch.device) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cpu_model = build_model('tiny-test', num_labels=3, device='cpu', seed=0)
-    with torch.no_grad():
-        # favour class 0 and sharpen the masks (10x mask logits; the decoder's
-        # attention masks read only their sign), so that slots pass the 0.5
-        # threshold well clear of it
-        cpu_model.class_predictor.bias.copy_(torch.tensor([4.0, 0.0, -1.0, 0.0]))
-        embedder = cpu_model.transformer_module.mask_predictor.mask_embedder_2
-        embedder.weight.mul_(10.0)
-        embedder.bias.mul_(10.0)
+    _keep_slots(cpu_model, torch.tensor([4.0, 0.0, -1.0, 0.0]))
     gpu_model = copy.deepcopy(cpu_model).to(dev)
     processor = Mask2FormerImageProcessor(size={'shortest_edge': 64, 'longest_edge': 96})
     image = np.random.default_rng(8).integers(0, 256, (64, 96, 3), dtype=np.uint8)
@@ -1257,17 +1234,84 @@ def _tiny_inference_parity(dev: torch.device) -> None:
     _, got = run_inference_array(image, make_forward_fn(gpu_model), processor, dev)
     check(fused_upsample_stats.launches == launches + 1, 'tiny-test inference did not launch '
                                                          'the post-process kernel')
+    n, score_err, agree = _same_segments(got, want, 1e-4, 'tiny-test f32 inference')
+    log(f'tiny-test f32 inference, card vs CPU: {n} segments, ids and labels equal, '
+        f'scores max abs err {score_err:.2e}, id maps equal on {agree:.5f} of the pixels')
+    # the CPU model's logits at bf16 through the post-process on both
+    pixels = torch.from_numpy(processor(images=image, return_tensors='np')['pixel_values'])
+    out = make_forward_fn(cpu_model)(pixels)
+    log(_postprocess_card_vs_cpu(types.SimpleNamespace(
+        class_queries_logits=out.class_queries_logits.bfloat16().to(dev),
+        masks_queries_logits=out.masks_queries_logits.bfloat16().to(dev)),
+        image.shape[:2], 'tiny-test logits'))
+
+
+def _keep_slots(model: torch.nn.Module, class_bias: torch.Tensor) -> None:
+    """Random weights made to keep slots past the 0.5 threshold well clear
+    of it: the class head's bias set to ``class_bias`` (favouring class 0)
+    and the masks sharpened (10x mask logits; the decoder's attention masks
+    read only their sign)."""
+    with torch.no_grad():
+        model.class_predictor.bias.copy_(class_bias)
+        embedder = model.transformer_module.mask_predictor.mask_embedder_2
+        embedder.weight.mul_(10.0)
+        embedder.bias.mul_(10.0)
+
+
+def _same_segments(got: dict, want: dict, score_tol: float, what: str) -> tuple:
+    """Two results of one image: at least one segment, the same ids and
+    labels, scores within ``score_tol``, id maps equal on at least 99.9 % of
+    the pixels. Returns (segments, scores' largest abs error, share of equal
+    pixels)."""
     key = [(s['id'], s['label_id']) for s in want['segments_info']]
-    check(len(key) >= 1, 'no segment kept at tiny-test')
+    check(len(key) >= 1, f'{what}: no segment kept')
     check([(s['id'], s['label_id']) for s in got['segments_info']] == key,
-          f'tiny-test inference segments differ: {got["segments_info"]} vs {want["segments_info"]}')
+          f'{what}: segments differ: {got["segments_info"][:8]} vs {want["segments_info"][:8]}')
     score_err = max(abs(a['score'] - b['score'])
                     for a, b in zip(got['segments_info'], want['segments_info']))
-    check(score_err <= 1e-4, f'tiny-test inference scores differ by {score_err}')
+    check(score_err <= score_tol, f'{what}: scores differ by {score_err}')
     agree = float((got['segmentation'] == want['segmentation']).mean())
-    check(agree >= 0.999, f'tiny-test inference id maps agree on {agree:.5f} of the pixels')
-    log(f'tiny-test f32 inference, card vs CPU: {len(key)} segments, ids and labels equal, '
-        f'scores max abs err {score_err:.2e}, id maps equal on {agree:.5f} of the pixels')
+    check(agree >= 0.999, f'{what}: id maps agree on {agree:.5f} of the pixels')
+    return len(key), score_err, agree
+
+
+def _postprocess_card_vs_cpu(out, hw: tuple, what: str) -> str:
+    """One image's logits on the card post-processed there and, copied, on
+    the CPU (the plain version): the class probabilities the same bits, and
+    ``_same_segments`` with scores within 2e-5 (the kernel's sigmoid sums
+    are held to rtol 1e-5 of the plain ones, and scores are rounded to 6
+    decimals). Returns the line to log."""
+    cls = out.class_queries_logits
+    probs_differ = int((class_probabilities(cls).cpu() != class_probabilities(cls.cpu())).sum())
+    check(probs_differ == 0, f'{what}: {probs_differ} class probabilities differ, card vs CPU')
+    on_cpu = types.SimpleNamespace(class_queries_logits=cls.cpu(),
+                                   masks_queries_logits=out.masks_queries_logits.cpu())
+    got = metrics.post_process_instance_segmentation(out, target_sizes=[hw])[0]
+    want = metrics.post_process_instance_segmentation(on_cpu, target_sizes=[hw])[0]
+    n, score_err, agree = _same_segments(got, want, 2e-5, what)
+    return (f'{what}, {str(cls.dtype)[6:]} logits post-processed on the card and the CPU: class '
+            f'probabilities the same bits, {n} segments, ids and labels equal, scores max abs '
+            f'err {score_err:.2e}, id maps equal on {agree:.5f} of the pixels')
+
+
+def _inference_kernel_checks(dev: torch.device) -> dict:
+    """Both attention kernels' bf16 forwards against their plain versions
+    at the inference path's batch-1 shapes, where the masked kernel splits
+    the keys otherwise than at batch 2 or 4: masked at S 10000, 2500 and
+    625; window shifted at stage 1 (NW 289, H 6) and stage 3 (NW 25, H 24).
+    Returns each one's largest abs error."""
+    errs = {}
+    for s in (10000, 2500, 625):
+        q, k, v, mask = masked_inputs(dev, 1, s)
+        errs[f'masked S {s}'] = _forward_err(
+            f'masked attention forward at B=1, S={s}, bf16', masked_attention,
+            masked_attention_plain, (q, k, v), (mask,))
+    for stage, (images, hp, heads) in INFER_WINDOW_STAGES.items():
+        q, k, v, bias, mask = window_inputs(dev, images, hp, heads)
+        errs[f'window {stage}'] = _forward_err(
+            f'window attention forward at {stage}: NW={q.shape[0]}, H={heads}, bf16 shifted',
+            window_attention, window_attention_plain, (q, k, v), (bias, mask))
+    return errs
 
 
 TRAINER_SPLITS = {'Train': 8, 'Validate': 2, 'Test': 4}
