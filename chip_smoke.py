@@ -87,7 +87,16 @@ Phases, each of which must pass (the script exits non-zero on any failure):
    epoch's img/s and input duty cycle, each save's seconds and size, the
    test phase's img/s and peak memory. Then at tiny-test, 1 epoch and a
    ``WISTPU_RESUME`` on to 2: history epochs [1, 2], micro-steps 2 then 4;
-   and a ``WISTPU_PROFILE`` run whose ``device_duty_profiled`` is recorded.
+   and a ``WISTPU_PROFILE`` run whose ``device_duty_profiled`` is recorded;
+9. serving export (``phase_export``): Swin-L (200 queries) and
+   Mask2Former-R50 (100 queries), 1024² uint8 → 800², batch 4, bf16, random
+   seeded weights made to keep slots: ``export_serving`` (seconds, MiB),
+   ``load_serving`` in a fresh ``python3`` that cannot import the port's
+   ``models`` (5 requests, each launching window forward 24 / 0, masked
+   forward 9 and post-process 1), the outputs of that process and of the
+   program loaded here equal to the live ``make_serving_fn``'s (scores
+   within 1e-5), and the loaded program's and the live function's median
+   ms a request, img/s and peak memory, timed in turns.
 
 The last lines are a JSON summary of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -127,7 +136,9 @@ from weed_instance_segmentation_tpu_torch.engine import metrics
 from weed_instance_segmentation_tpu_torch.engine import test as engine_test
 from weed_instance_segmentation_tpu_torch.engine import train as engine_train
 from weed_instance_segmentation_tpu_torch.engine.checkpoint import load_pretrained, save_pretrained
-from weed_instance_segmentation_tpu_torch.engine.export import make_serving_fn
+from weed_instance_segmentation_tpu_torch.engine.export import (
+    export_serving, load_serving, make_serving_fn,
+)
 from weed_instance_segmentation_tpu_torch.engine.inference import run_inference_array
 from weed_instance_segmentation_tpu_torch.engine.model_utils import (
     build_model, config_for_arch, load_model, resolve_model_path,
@@ -142,6 +153,8 @@ from weed_instance_segmentation_tpu_torch.models import transformer_decoder
 from weed_instance_segmentation_tpu_torch.models.pixel_decoder import reference_points_constant
 from weed_instance_segmentation_tpu_torch.models.swin import shifted_window_attn_mask
 from weed_instance_segmentation_tpu_torch.ops import deformable_attention
+from weed_instance_segmentation_tpu_torch.ops import masked_attention as masked_attention_ops
+from weed_instance_segmentation_tpu_torch.ops import window_attention as window_attention_ops
 from weed_instance_segmentation_tpu_torch.ops.cuda_build import build_libraries, build_log
 from weed_instance_segmentation_tpu_torch.ops.masked_attention import (
     masked_attention, masked_attention_plain,
@@ -714,8 +727,16 @@ def phase_serving(dev: torch.device) -> dict:
         f'median latency {1e3 * statistics.median(latencies):.1f} ms, '
         f'peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches {launches}')
 
-    # one more request, its decoder's masked-attention calls recorded: the
-    # kernel against the plain version on the masks the decoder really makes
+    _decoder_masked_checks(serve, requests[1], per_request['masked_attention_fwd'], 'swin-large')
+    del model, serve, requests
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _decoder_masked_checks(serve, raw: torch.Tensor, layers: int, what: str) -> None:
+    """One request through ``serve`` with its decoder's masked-attention
+    calls recorded: the kernel against the plain version on the masks the
+    decoder really makes, within 2e-2 of the largest output."""
     calls = []
 
     def recording(q, k, v, mask):
@@ -725,21 +746,18 @@ def phase_serving(dev: torch.device) -> dict:
 
     transformer_decoder.masked_attention = recording
     try:
-        serve(requests[1])
+        serve(raw)
     finally:
         transformer_decoder.masked_attention = masked_attention
-    check(len(calls) == per_request['masked_attention_fwd'],
-          f'the recorded request made {len(calls)} masked-attention calls')
-    log('decoder masked attention of one request, kernel vs plain (f32 on the same bf16 values):')
+    check(len(calls) == layers, f'the recorded request made {len(calls)} masked-attention calls')
+    log(f'{what} decoder masked attention of one request, kernel vs plain (f32 on the same bf16 '
+        f'values):')
     with torch.inference_mode():
         for i, (q, k, v, mask, out) in enumerate(calls):
             _, rel = _rel_errors(out, masked_attention_plain(q.float(), k.float(), v.float(), mask))
             log(f'  layer {i}: q {tuple(q.shape)}, S {k.shape[2]}, '
                 f'{mask.float().mean().item():.3f} of the scores blocked, out rel err {rel:.2e}')
-            check(rel <= 2e-2, f'decoder layer {i}: masked attention {rel:.3e} beyond 0.02')
-    del model, serve, requests, calls
-    torch.cuda.empty_cache()
-    return launches
+            check(rel <= 2e-2, f'{what} decoder layer {i}: masked attention {rel:.3e} beyond 0.02')
 
 
 class _SynthRaw:
@@ -1712,10 +1730,221 @@ def phase_tiny_parity(dev: torch.device) -> None:
         f'({noisy} entries with noise gradients held to 2 lr); launches {gpu_launched}')
 
 
+EXPORT_REQUESTS = 5
+EXPORT_ARCHS = {  # arch → kernel launches a request: window and masked forward, post-process
+    'swin-large': {'window_attention_fwd': 24, 'masked_attention_fwd': 9,
+                   'fused_upsample_stats': 1},
+    'resnet50': {'window_attention_fwd': 0, 'masked_attention_fwd': 9,
+                 'fused_upsample_stats': 1},
+}
+EXPORT_SCORE_TOL = 1e-5  # loaded program against the live function, the same kernels
+# the artifact loaded where the port's model code cannot be imported: it
+# serves the export phase's requests, counts each one's launches and saves
+# the results for the parent to hold against the live serving function
+_LOAD_ALONE = r"""
+import json, sys, time
+sys.modules['weed_instance_segmentation_tpu_torch.models'] = None  # import raises
+import torch
+from weed_instance_segmentation_tpu_torch.engine.export import load_serving
+from weed_instance_segmentation_tpu_torch.ops.masked_attention import masked_attention
+from weed_instance_segmentation_tpu_torch.ops.postprocess_kernel import fused_upsample_stats
+from weed_instance_segmentation_tpu_torch.ops.window_attention import window_attention
+out_dir, n, shape, results = sys.argv[1], int(sys.argv[2]), json.loads(sys.argv[3]), sys.argv[4]
+t0 = time.perf_counter()
+serve, manifest = load_serving(out_dir)
+load_s = time.perf_counter() - t0
+dev = torch.device('cuda', 0)
+g = torch.Generator(device=dev).manual_seed(0)
+requests = [torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
+            for _ in range(n)]
+ops = {'window_attention_fwd': window_attention, 'masked_attention_fwd': masked_attention,
+       'fused_upsample_stats': fused_upsample_stats}
+launches, out = [], []
+for raw in requests:
+    before = {k: op.launches for k, op in ops.items()}
+    res = serve(raw)
+    torch.cuda.synchronize()
+    launches.append({k: op.launches - before[k] for k, op in ops.items()})
+    out.append({k: v.cpu() for k, v in res.items()})
+torch.save(out, results)
+blocked = sys.modules.get('weed_instance_segmentation_tpu_torch.models', 0) is None
+print(json.dumps({'load_s': load_s, 'launches': launches, 'platforms': manifest['platforms'],
+                  'models_blocked': blocked}))
+"""
+
+
+def _export_requests(dev: torch.device) -> list:
+    """The export phase's uint8 requests, from a seed (``_LOAD_ALONE`` makes
+    the same ones)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    shape = (SERVING_BATCH, SERVING_IN, SERVING_IN, 3)
+    return [torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
+            for _ in range(EXPORT_REQUESTS)]
+
+
+def _same_result(got: dict, want: dict, what: str) -> float:
+    """Segmentation, segment ids, labels and valid flags equal; scores within
+    ``EXPORT_SCORE_TOL``. Returns the scores' largest abs difference."""
+    check(set(got) == set(want), f'{what}: keys {sorted(got)} vs {sorted(want)}')
+    for key in ('segmentation', 'segment_ids', 'labels', 'valid'):
+        check(torch.equal(got[key].cpu(), want[key].cpu()), f'{what}: {key} differs')
+    err = (got['scores'].cpu() - want['scores'].cpu()).abs().max().item()
+    check(err <= EXPORT_SCORE_TOL, f'{what}: scores differ by {err:.3e}')
+    return err
+
+
+def _op_dispatch_us(dev: torch.device, calls: int = 400) -> dict:
+    """Host µs a call of each attention wrapper (checks, the registered
+    operator's dispatch, its CUDA implementation's launch) and of that CUDA
+    implementation called directly, at the inference path's smallest
+    shapes (bf16: masked B 1, S 625; window stage 3 at batch 1), in blocks
+    of ``calls`` taken in turns, each block ending in a synchronise."""
+    q, k, v, mask = (t.to(torch.bfloat16) if t.is_floating_point() else t
+                     for t in masked_inputs(dev, 1, 625))
+    wq, wk, wv, bias, wmask = window_inputs(dev, *INFER_WINDOW_STAGES['stage3_b1'])
+    wq, wk, wv = (t.to(torch.bfloat16) for t in (wq, wk, wv))
+    fns = {'masked wrapper': lambda: masked_attention(q, k, v, mask),
+           'masked direct': lambda: masked_attention_ops._forward_cuda(q, k, v, mask),
+           'window wrapper': lambda: window_attention(wq, wk, wv, bias, wmask),
+           'window direct': lambda: window_attention_ops._forward_cuda(wq, wk, wv, bias, wmask)}
+    times = {name: [] for name in fns}
+    with torch.no_grad():
+        for r in range(4):
+            for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fns[name]()
+                torch.cuda.synchronize()
+                times[name].append(1e6 * (time.perf_counter() - t0) / calls)
+    return {name: min(ts) for name, ts in times.items()}
+
+
+def phase_export(dev: torch.device, root: str) -> dict:
+    """The serving export entry point at full width, for both architectures
+    the JAX export CLI builds: Swin-L (200 queries) and Mask2Former-R50 (100
+    queries), 1024² uint8 → 800², batch 4, bf16, random seeded weights with
+    class 0's bias raised and the masks sharpened so that slots pass 0.5.
+    Each: ``export_serving`` (seconds, artifact MiB); ``load_serving`` in a
+    fresh ``python3`` that cannot import the port's ``models``, serving
+    ``EXPORT_REQUESTS`` requests with each request's launches exactly those
+    of ``EXPORT_ARCHS``; the same requests through the program loaded here
+    and through the live ``make_serving_fn``: the same segmentation, ids,
+    labels and valid flags, scores within ``EXPORT_SCORE_TOL``; the loaded
+    program's launches over the requests (counts set to 0 just before);
+    then the median ms per request, img/s and peak memory of both, timed
+    in turns. Returns each arch's launches."""
+    card = card_line()
+    shape = [SERVING_BATCH, SERVING_IN, SERVING_IN, 3]
+    hw = (SERVING_HW, SERVING_HW)
+    launches_by_arch = {}
+    for arch, per_request in EXPORT_ARCHS.items():
+        model = build_model(arch, num_labels=5, dtype=torch.bfloat16, device=dev, seed=0)
+        cfg = model.config
+        class_bias = torch.zeros(cfg.num_labels + 1)
+        class_bias[0] = 4.0
+        _keep_slots(model, class_bias)
+        out_dir = os.path.join(root, arch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        artifact = export_serving(model, out_dir, batch=SERVING_BATCH, in_hw=(SERVING_IN,) * 2,
+                                  out_hw=hw, emit_masks=False,
+                                  manifest_extra={'arch': arch, 'compute_dtype': 'bfloat16'})
+        export_s = time.perf_counter() - t0
+        mib = os.path.getsize(artifact) / 2**20
+
+        results = os.path.join(root, f'{arch}_alone.pt')
+        env = {**os.environ, 'PYTHONPATH': os.pathsep.join(
+            [os.path.dirname(os.path.abspath(__file__))]
+            + [p for p in os.environ.get('PYTHONPATH', '').split(os.pathsep) if p])}
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, '-c', _LOAD_ALONE, out_dir, str(EXPORT_REQUESTS),
+                               json.dumps(shape), results], env=env, capture_output=True,
+                              text=True, timeout=600)
+        alone_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f'{arch}: load_serving alone failed:\n{proc.stderr[-3000:]}')
+        alone = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(alone['models_blocked'] and alone['platforms'] == ['cuda'],
+              f'{arch}: the load-alone process {alone}')
+        for i, launched in enumerate(alone['launches']):
+            check(launched == per_request, f'{arch}: loaded alone, request {i} launched '
+                                           f'{launched}, not {per_request}')
+        alone_out = torch.load(results)
+
+        live = make_serving_fn(model, out_hw=hw, emit_masks=False)
+        t0 = time.perf_counter()
+        loaded, manifest = load_serving(out_dir)
+        load_s = time.perf_counter() - t0
+        requests = _export_requests(dev)
+        want = [live(raw) for raw in requests]
+        reset_counts()
+        got = [loaded(raw) for raw in requests]
+        torch.cuda.synchronize()
+        launches = counts()
+        expected = {**{k: n * EXPORT_REQUESTS for k, n in per_request.items()},
+                    'window_attention_bwd': 0, 'masked_attention_bwd': 0}
+        check(launches == expected, f'{arch}: loaded program launches {launches}, not {expected}')
+        errs = []
+        for i, (g_, a, w) in enumerate(zip(got, alone_out, want)):
+            check_result(g_, SERVING_BATCH, hw, cfg.num_queries)
+            errs.append(_same_result(g_, w, f'{arch} request {i}, loaded here vs live'))
+            errs.append(_same_result(a, w, f'{arch} request {i}, loaded alone vs live'))
+        kept = [int(w['valid'].sum()) for w in want]
+        check(sum(kept) >= 1, f'{arch}: no segment kept in {EXPORT_REQUESTS} requests')
+        if arch == 'resnet50':  # shapes no other phase checks: Q 100
+            _decoder_masked_checks(live, requests[0], per_request['masked_attention_fwd'], arch)
+            with torch.inference_mode():
+                pixels, _ = fused_preprocess(requests[0], hw, hw)
+                logits = model(pixels).masks_queries_logits.float()
+            n_flips, err = check_postprocess(logits, fused_upsample_stats(logits,
+                                                                          SCORE_RESOLUTION))
+            log(f'{arch} post-process kernel vs plain on one request\'s logits '
+                f'{tuple(logits.shape)}: {n_flips} bin flips at zero crossings, sig_sum max '
+                f'abs err {err:.3e}, pos_cnt exact after flips')
+
+        fns = {'loaded': loaded, 'live': live}
+        peaks = {}
+        for name, fn in fns.items():  # warm, and each one's peak alone
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            fn(requests[0])
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated(dev) / 2**30
+        times = {name: [] for name in fns}
+        for r, raw in enumerate(requests):
+            for name in (('loaded', 'live') if r % 2 == 0 else ('live', 'loaded')):
+                t0 = time.perf_counter()
+                fns[name](raw)
+                torch.cuda.synchronize()
+                times[name].append(time.perf_counter() - t0)
+        log(f'export {arch} {SERVING_HW}x{SERVING_HW} b{SERVING_BATCH} bf16 (from '
+            f'{SERVING_IN}² uint8, {cfg.num_queries} queries): export_serving {export_s:.1f} s, '
+            f'artifact {mib:.1f} MiB; load_serving here {load_s:.1f} s; alone (a python3 that '
+            f'cannot import the port\'s models) {alone["load_s"]:.1f} s to load, '
+            f'{alone_s:.1f} s for the process; launches a request {per_request}, here over '
+            f'{EXPORT_REQUESTS} requests {launches}; outputs equal to the live function\'s '
+            f'(segmentation, ids, labels, valid), scores max abs diff {max(errs):.3e}; '
+            f'segments kept {kept}; card {card}')
+        for name, ts in times.items():
+            log(f'  {name}: median {1e3 * statistics.median(ts):.1f} ms a request '
+                f'({", ".join(f"{1e3 * t:.1f}" for t in ts)}), '
+                f'{EXPORT_REQUESTS * SERVING_BATCH / sum(ts):.3f} img/s, '
+                f'peak memory {peaks[name]:.2f} GiB')
+        launches_by_arch[arch] = launches
+        del model, live, loaded, got, want, alone_out
+        torch.cuda.empty_cache()
+    dispatch = _op_dispatch_us(dev)
+    log('host µs a call, wrapper through the registered operator against its CUDA '
+        'implementation called directly (best of 4 blocks of 400): '
+        + ', '.join(f'{name} {us:.1f}' for name, us in dispatch.items()))
+    return launches_by_arch
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log('chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU')
         return 1
+    t_start = time.perf_counter()
     dev = torch.device('cuda', 0)
     card = card_line()
     log(f'card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, '
@@ -1742,6 +1971,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         evaluation = phase_eval(dev, root)
         inference = phase_inference(dev, root)
+    with tempfile.TemporaryDirectory() as root:
+        exported = phase_export(dev, root)
     for name in ('window_attention_fwd', 'window_attention_bwd', 'masked_attention_fwd',
                  'masked_attention_bwd'):
         check(training[name] > 0, f'the training run never launched {name}')
@@ -1749,6 +1980,10 @@ def main() -> int:
     for name in ('fused_upsample_stats', 'window_attention_fwd', 'masked_attention_fwd'):
         check(evaluation[name] > 0, f'the eval run never launched {name}')
         check(inference[name] > 0, f'the inference run never launched {name}')
+        check(exported['swin-large'][name] > 0, f'the export run never launched {name}')
+    check(exported['resnet50']['masked_attention_fwd'] > 0
+          and exported['resnet50']['fused_upsample_stats'] > 0,
+          'the resnet export run never launched the masked attention or the post-process')
     phase_tiny_parity(dev)
     with tempfile.TemporaryDirectory() as root:
         phase_tiny_eval(dev, root)
@@ -1766,8 +2001,11 @@ def main() -> int:
                         'launches_by_path': {'serving': serving[name], 'training': training[name],
                                              'eval': evaluation[name],
                                              'inference': inference[name],
-                                             'trainer': trainer[name]},
+                                             'trainer': trainer[name],
+                                             'export': exported['swin-large'][name],
+                                             'resnet': exported['resnet50'][name]},
                         **timing[name]})
+    log(f'chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'kernels': kernels}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {

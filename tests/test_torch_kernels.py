@@ -810,3 +810,85 @@ def test_msda_value_grad_same_bits_on_card(cuda_device):
     assert torch.equal(first, second)
     err = (first.float() - cpu.float()).abs()
     assert (err <= 2 ** -7 * cpu.float().abs() + 1e-6).all(), err.max().item()
+
+
+@pytest.mark.parametrize('op', ['masked', 'window', 'window-shifted'])
+def test_registered_backward_gives_the_plain_gradients(op):
+    """On the CPU the registered forward operator's autograd formula calls
+    the registered backward operator, whose CPU implementation is the plain
+    version's vector-Jacobian product: the same bits as autograd through the
+    plain version (dQ, dK, dV, and dBias for window attention)."""
+    if op == 'masked':
+        q, k, v, mask = _masked_inputs('small', torch.device('cpu'))
+        wrapper, plain, ins, consts = masked_attention, masked_attention_plain, [q, k, v], [mask]
+    else:
+        q, k, v, bias, mask = _window_inputs('small', op == 'window-shifted', torch.device('cpu'))
+        wrapper, plain, ins, consts = window_attention, window_attention_plain, [q, k, v, bias], \
+            [mask]
+    cot = torch.randn(q.shape, generator=torch.Generator().manual_seed(6))
+    grads = []
+    for fn in (wrapper, plain):
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        fn(*leaves, *consts).backward(cot)
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_registered_ops_give_the_wrappers_bits_on_card(cuda_device):
+    """Each registered operator called directly on CUDA tensors gives the
+    bits of its wrapper (forward and, through autograd, backward; the
+    lse float32), and ``torch.export`` of a module that calls the three
+    forward wrappers records the operators; the exported program gives the
+    module's bits, and its launches are counted."""
+    wistpu = torch.ops.wistpu
+    q, k, v, mask = (t.to(torch.bfloat16) if t.is_floating_point() else t
+                     for t in _masked_inputs('small', cuda_device))
+    out, lse = wistpu.masked_attention_fwd(q, k, v, mask)
+    assert lse.dtype == torch.float32 and lse.shape == q.shape[:3]
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = masked_attention(*leaves, mask)
+    assert torch.equal(out, want)
+    cot = torch.randn_like(want)
+    want.backward(cot)
+    for got, leaf in zip(wistpu.masked_attention_bwd(q, k, v, out, lse, mask, cot), leaves):
+        assert torch.equal(got, leaf.grad)
+
+    wq, wk, wv, bias, wmask = _window_inputs('swin-t-w7', True, cuda_device)
+    wq, wk, wv = (t.to(torch.bfloat16) for t in (wq, wk, wv))
+    out, lse = wistpu.window_attention_fwd(wq, wk, wv, bias, wmask)
+    assert lse.dtype == torch.float32 and lse.shape == wq.shape[:3]
+    leaves = [t.clone().requires_grad_(True) for t in (wq, wk, wv, bias)]
+    want = window_attention(*leaves, wmask)
+    assert torch.equal(out, want)
+    cot = torch.randn_like(want)
+    want.backward(cot)
+    got = wistpu.window_attention_bwd(wq, wk, wv, out, lse, bias, wmask, cot)
+    for g_, leaf in zip(got, leaves):
+        assert torch.equal(g_, leaf.grad)
+
+    logits = torch.randn((1, 3, 37, 50), generator=torch.Generator(device=cuda_device)
+                         .manual_seed(0), device=cuda_device)
+    for g_, w in zip(wistpu.fused_upsample_stats(logits, [96, 64]),
+                     fused_upsample_stats(logits, (96, 64))):
+        assert torch.equal(g_, w)
+
+    class Calls(torch.nn.Module):
+        def forward(self, q, k, v, mask, wq, wk, wv, bias, wmask, logits):
+            return (masked_attention(q, k, v, mask), window_attention(wq, wk, wv, bias, wmask),
+                    *fused_upsample_stats(logits, (96, 64)))
+
+    args = (q, k, v, mask, wq, wk, wv, bias, wmask, logits)
+    with torch.no_grad():
+        program = torch.export.export(Calls(), args, strict=False)
+        want = Calls()(*args)
+        launches = (masked_attention.launches, window_attention.launches,
+                    fused_upsample_stats.launches)
+        got = program.module()(*args)
+    assert (masked_attention.launches, window_attention.launches,
+            fused_upsample_stats.launches) == tuple(n + 1 for n in launches)
+    ops = {str(n.target) for n in program.graph.nodes if str(n.target).startswith('wistpu.')}
+    assert ops == {'wistpu.masked_attention_fwd.default', 'wistpu.window_attention_fwd.default',
+                   'wistpu.fused_upsample_stats.default'}
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -15,7 +15,8 @@ one seeded ``torch.Generator`` (the numbers differ from ``jax.random``'s):
 lecun-normal (truncated) Dense/Conv kernels with zero biases, xavier-uniform
 attention, MSDA projection, mask-embedder and decoder-FFN kernels, zero
 ``sampling_offsets`` kernel with the radial-grid bias, zero
-``attention_weights``, unit/zero norms, and normal(0.02) query and decoder
+``attention_weights``, unit/zero norms (a frozen batch norm's scale and
+variance one, its bias and mean zero), and normal(0.02) query and decoder
 level embeddings.
 """
 
@@ -35,6 +36,7 @@ from weed_instance_segmentation_tpu_torch.models.mask2former import Mask2Former
 from weed_instance_segmentation_tpu_torch.models.pixel_decoder import (
     MSDeformAttn, deform_offsets_bias_init,
 )
+from weed_instance_segmentation_tpu_torch.models.resnet import FrozenBatchNorm
 from weed_instance_segmentation_tpu_torch.models.transformer_decoder import (
     DecoderLayer, MaskPredictor, MultiheadAttention, TransformerModule,
 )
@@ -44,11 +46,22 @@ from weed_instance_segmentation_tpu_torch.processing.image_processor import (
 
 
 def config_for_arch(arch: str, **kwargs) -> Mask2FormerConfig:
+    """The config of ``arch`` ('tiny-test', 'resnet50', 'swin-<variant>').
+    ``WISTPU_ENCODER_POINTS``, where set, gives the deformable encoder's
+    sampling points per level (the HF reference's 4 otherwise); a model of
+    other than 4 cannot load a 4-point checkpoint."""
     if arch == 'tiny-test':
-        return Mask2FormerConfig.tiny_test(**kwargs)
-    if arch.startswith('swin-'):
-        return Mask2FormerConfig.swin(arch.split('-', 1)[1], **kwargs)
-    raise ValueError(f'Unknown model arch {arch!r}')
+        cfg = Mask2FormerConfig.tiny_test(**kwargs)
+    elif arch == 'resnet50':
+        cfg = Mask2FormerConfig.resnet50(**kwargs)
+    elif arch.startswith('swin-'):
+        cfg = Mask2FormerConfig.swin(arch.split('-', 1)[1], **kwargs)
+    else:
+        raise ValueError(f'Unknown model arch {arch!r}')
+    points = os.environ.get('WISTPU_ENCODER_POINTS')
+    if points:
+        cfg.encoder_n_points = int(points)
+    return cfg
 
 
 def _lecun_normal_(weight: torch.Tensor, g: torch.Generator) -> None:
@@ -71,6 +84,10 @@ def init_weights(model: Mask2Former, seed: int = 0) -> None:
         elif isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
             nn.init.ones_(module.weight)
             nn.init.zeros_(module.bias)
+        elif isinstance(module, FrozenBatchNorm):
+            for p, fill in ((module.scale, 1.0), (module.bias, 0.0), (module.mean, 0.0),
+                            (module.var, 1.0)):
+                nn.init.constant_(p, fill)
 
     xavier = []
     for module in model.modules():

@@ -1,10 +1,13 @@
 """Model configurations.
 
-Dataclass twins of HF ``Mask2FormerConfig`` / ``SwinConfig``, copied by value
-from ``weed_instance_segmentation_tpu/models/configuration.py`` (importing that
-module would run the JAX package's ``__init__``). Only the Swin backbone is
-ported so far. ``from_json``/``save_json`` read and write the same
-``config.json`` as the JAX package (and as an HF checkpoint).
+Dataclass twins of HF ``Mask2FormerConfig`` / ``SwinConfig`` and the JAX
+package's ``ResNetConfig``, copied by value from
+``weed_instance_segmentation_tpu/models/configuration.py`` (importing that
+module would run the JAX package's ``__init__``). ``from_json``/``save_json``
+read and write the same ``config.json`` as the JAX package (and as an HF
+checkpoint). As there, a ResNet config is written without a backbone
+``model_type`` and read back only as Swin, so a ResNet model directory does
+not reload in either package.
 """
 
 from __future__ import annotations
@@ -44,6 +47,18 @@ class SwinConfig:
         return self.num_features
 
 
+@dataclasses.dataclass
+class ResNetConfig:
+    """torchvision-style ResNet with frozen batch norm (detection backbone)."""
+    depths: tuple = (3, 4, 6, 3)  # R50
+    embed_dim: int = 64
+    num_channels: int = 3
+
+    @property
+    def channels(self) -> tuple:
+        return tuple(self.embed_dim * 4 * 2 ** i for i in range(4))  # (256,512,1024,2048)
+
+
 # Swin presets (embed_dim / depths / heads / window per official checkpoints).
 SWIN_PRESETS = {
     'tiny': dict(embed_dim=96, depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24), window_size=7),
@@ -55,7 +70,7 @@ SWIN_PRESETS = {
 
 @dataclasses.dataclass
 class Mask2FormerConfig:
-    backbone_config: Optional[SwinConfig] = None
+    backbone_config: Optional[SwinConfig | ResNetConfig] = None
     feature_size: int = 256
     mask_feature_size: int = 256
     hidden_dim: int = 256
@@ -102,6 +117,10 @@ class Mask2FormerConfig:
         preset = SWIN_PRESETS[variant]
         num_queries = kwargs.pop('num_queries', 200 if variant in ('base', 'large') else 100)
         return cls(backbone_config=SwinConfig(**preset), num_queries=num_queries, **kwargs)
+
+    @classmethod
+    def resnet50(cls, **kwargs) -> 'Mask2FormerConfig':
+        return cls(backbone_config=ResNetConfig(), **kwargs)
 
     @classmethod
     def tiny_test(cls, **kwargs) -> 'Mask2FormerConfig':
@@ -161,7 +180,8 @@ class Mask2FormerConfig:
     def to_hf_dict(self) -> dict:
         d = dataclasses.asdict(self)
         bb = d.pop('backbone_config')
-        bb['model_type'] = 'swin'
+        if isinstance(self.backbone_config, SwinConfig):
+            bb['model_type'] = 'swin'
         d['backbone_config'] = bb
         d['model_type'] = 'mask2former'
         return d

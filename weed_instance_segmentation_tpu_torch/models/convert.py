@@ -8,7 +8,8 @@ flatten plus three layout rules:
 
 - Dense ``kernel`` (in, out) → Linear ``weight`` (out, in);
 - Conv ``kernel`` HWIO → Conv2d ``weight`` OIHW;
-- LayerNorm/GroupNorm ``scale`` → ``weight``.
+- LayerNorm/GroupNorm ``scale`` → ``weight`` (a ResNet FrozenBatchNorm keeps
+  ``scale``, ``bias``, ``mean`` and ``var``).
 
 Every other leaf (biases, ``relative_position_bias_table``, ``level_embed``,
 the query embeddings) keeps its name and layout. Load the result with
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 from collections.abc import Mapping
 
 import numpy as np
@@ -42,14 +44,19 @@ from weed_instance_segmentation_tpu_torch.models.configuration import (
 )
 
 
-def _leaf(name: str, value: np.ndarray) -> tuple[str, np.ndarray]:
+# a ResNet FrozenBatchNorm (``stem_bn``, ``bn1``…``bn3``, ``downsample_bn``):
+# its ``scale``, ``bias``, ``mean`` and ``var`` keep their flax names
+_FROZEN_BN = re.compile(r'(^|_)bn\d*$')
+
+
+def _leaf(name: str, value: np.ndarray, parent: str = '') -> tuple[str, np.ndarray]:
     if name == 'kernel':
         if value.ndim == 2:
             return 'weight', value.T
         if value.ndim == 4:
             return 'weight', value.transpose(3, 2, 0, 1)
         raise ValueError(f'kernel of rank {value.ndim} has no torch layout rule')
-    if name == 'scale':
+    if name == 'scale' and not _FROZEN_BN.search(parent):
         return 'weight', value
     return name, value
 
@@ -61,18 +68,18 @@ def params_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     """
     state_dict: dict[str, torch.Tensor] = {}
 
-    def walk(tree: Mapping, prefix: str) -> None:
+    def walk(tree: Mapping, prefix: str, parent: str) -> None:
         for key, value in tree.items():
             if isinstance(value, Mapping):
-                walk(value, f'{prefix}{key}.')
+                walk(value, f'{prefix}{key}.', key)
                 continue
-            name, array = _leaf(key, np.asarray(value))
+            name, array = _leaf(key, np.asarray(value), parent)
             full = prefix + name
             if full in state_dict:
                 raise ValueError(f'two flax leaves map to {full!r}')
             state_dict[full] = torch.from_numpy(np.ascontiguousarray(array).copy())
 
-    walk(params, '')
+    walk(params, '', '')
     return state_dict
 
 
@@ -101,7 +108,7 @@ def torch_leaf(path: str, value: np.ndarray) -> tuple[str, np.ndarray]:
     """The inverse of :func:`flax_leaf` for one leaf: flax path joined by
     '/' → (``state_dict`` name, array in the torch layout)."""
     *prefix, name = path.split('/')
-    name, array = _leaf(name, np.asarray(value))
+    name, array = _leaf(name, np.asarray(value), prefix[-1] if prefix else '')
     return '.'.join(prefix + [name]), array
 
 

@@ -9,9 +9,11 @@ transformer module.
 
 API: NCHW ``pixel_values`` like the reference, transposed once to NHWC
 inside. The model computes in the dtype of its parameters, or under the
-caller's autocast. ``remat`` recomputes activations in the backward, as the
-JAX model's: True = backbone blocks and deformable encoder layers,
-'encoder' = encoder layers only, False = store everything.
+caller's autocast. The backbone is Swin or ResNet, by the config's type.
+``remat`` recomputes activations in the backward, as the JAX model's: True =
+Swin blocks and deformable encoder layers, 'encoder' = encoder layers only,
+False = store everything (the ResNet backbone takes none, as in the JAX
+package).
 """
 
 from __future__ import annotations
@@ -22,9 +24,10 @@ import torch
 from torch import nn
 
 from weed_instance_segmentation_tpu_torch.models.configuration import (
-    Mask2FormerConfig, SwinConfig,
+    Mask2FormerConfig, ResNetConfig, SwinConfig,
 )
 from weed_instance_segmentation_tpu_torch.models.pixel_decoder import PixelDecoder
+from weed_instance_segmentation_tpu_torch.models.resnet import ResNetBackbone
 from weed_instance_segmentation_tpu_torch.models.swin import SwinBackbone
 from weed_instance_segmentation_tpu_torch.models.transformer_decoder import TransformerModule
 
@@ -47,12 +50,15 @@ class Mask2FormerOutput(NamedTuple):
 class Mask2Former(nn.Module):
     def __init__(self, config: Mask2FormerConfig, remat: bool | str = False):
         super().__init__()
-        if not isinstance(config.backbone_config, SwinConfig):
-            raise ValueError(f'Unsupported backbone config {type(config.backbone_config)}')
         if remat not in (True, False, 'encoder'):
             raise ValueError(f'remat must be True, False or \'encoder\', got {remat!r}')
+        if isinstance(config.backbone_config, SwinConfig):
+            self.backbone = SwinBackbone(config.backbone_config, remat=remat is True)
+        elif isinstance(config.backbone_config, ResNetConfig):
+            self.backbone = ResNetBackbone(config.backbone_config)
+        else:
+            raise ValueError(f'Unsupported backbone config {type(config.backbone_config)}')
         self.config = config
-        self.backbone = SwinBackbone(config.backbone_config, remat=remat is True)
         self.pixel_decoder = PixelDecoder(config, config.backbone_config.channels,
                                           remat=bool(remat))
         self.transformer_module = TransformerModule(config)

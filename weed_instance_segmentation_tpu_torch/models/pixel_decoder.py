@@ -25,6 +25,7 @@ the layer runs as two checkpointed regions around the MSDA call.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -70,6 +71,15 @@ def _offset_normalizer(spatial_shapes: tuple) -> np.ndarray:
     return np.asarray([[w, h] for h, w in spatial_shapes], np.float32)
 
 
+def _autocast_off(device_type: str):
+    """Autocast turned off where it is on. Where it is off already no
+    context is entered, so that ``torch.export`` records no autocast region
+    in the serving program."""
+    if torch.is_autocast_enabled(device_type):
+        return torch.autocast(device_type, enabled=False)
+    return contextlib.nullcontext()
+
+
 class MSDeformAttn(nn.Module):
     """Deformable attention module (HF:888-986): :meth:`sampling_inputs`,
     then :meth:`core`, then ``output_proj`` (``EncoderLayer`` runs the three
@@ -97,7 +107,7 @@ class MSDeformAttn(nn.Module):
         offsets = self.sampling_offsets(with_pos).reshape(b, seq, nh, nl, npts, 2)
         attn = self.attention_weights(with_pos).reshape(b, seq, nh, nl * npts)
         dtype = offsets.dtype
-        with torch.autocast(hidden_states.device.type, enabled=False):
+        with _autocast_off(hidden_states.device.type):
             # jax.nn.softmax's steps, each rounded to the compute dtype; no
             # gradient through the max, as there (its backward then takes the
             # same steps)
@@ -114,7 +124,7 @@ class MSDeformAttn(nn.Module):
     def core(value, locations, attn, spatial_shapes):
         """The MSDA sampling sum (float32 coordinates, the value dtype's
         sums), outside autocast."""
-        with torch.autocast(value.device.type, enabled=False):
+        with _autocast_off(value.device.type):
             return msda(value, spatial_shapes, locations, attn)
 
 

@@ -9,8 +9,8 @@ Sources do not include PyTorch's headers, which keeps a build to seconds.
 
 A failed build raises; there is no fallback. The wrappers bind an entry point
 with :func:`entry_point`, call it with :func:`launch` (which raises on a CUDA
-error), check attention inputs with :func:`check_attention_inputs` and size
-their grids with :func:`sm_count`.
+error), check attention inputs with :func:`check_attention_inputs` and
+:func:`check_aligned` and size their grids with :func:`sm_count`.
 """
 
 from __future__ import annotations
@@ -114,6 +114,16 @@ def launch(fn, device: torch.device, what: str, *args) -> None:
 def sm_count(device_index: int) -> int:
     """The number of SMs of a CUDA device."""
     return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def check_aligned(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """The bf16 attention kernels' 16-byte vector reads: q, k and v must
+    start at 16-byte-aligned addresses. It reads ``data_ptr()``, so only a
+    registered operator's CUDA implementation calls it (``torch.export``
+    traces with tensors that have no data)."""
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError('the bfloat16 kernels read 16-byte vectors: q, k and v must start '
+                         'at 16-byte-aligned addresses')
 
 
 def check_attention_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, others,

@@ -13,14 +13,19 @@ support of the additive bias the Pallas kernel and the JAX decoder take
 byte per score and adds exactly −1e9 in float32, so it computes the same
 function. The mask takes no gradient (it comes from ``sigmoid < 0.5``).
 
-A CUDA tensor goes to ``csrc/masked_attention.cu`` through a
-``torch.autograd.Function``. In bfloat16 the forward and the backward's dQ
+The forward and the backward are registered operators,
+``torch.ops.wistpu.masked_attention_fwd`` → (O, row log-sum-exp in float32)
+and ``torch.ops.wistpu.masked_attention_bwd`` → (dQ, dK, dV), so that
+``torch.export`` records them (``engine/export.py``); the forward's autograd
+formula calls the backward. For a CUDA tensor each launches
+``csrc/masked_attention.cu``: in bfloat16 the forward and the backward's dQ
 launch run on tensor cores split over chunks of the keys (:func:`key_chunks`)
 into a float32 scratch that a last launch merges (the forward's chunk maxima
-and sums) or sums (dQ); float32 runs on CUDA cores with no split. A CPU tensor
-goes to :func:`masked_attention_plain` under autograd. There is no fallback. Each
-forward launch adds one to ``masked_attention.launches``, each backward to
-``masked_attention.backward_launches``.
+and sums) or sums (dQ); float32 runs on CUDA cores with no split. For a CPU
+tensor the forward is :func:`masked_attention_plain` and the backward its
+vector-Jacobian product (:func:`masked_attention_vjp_plain`). There is no
+fallback. Each forward launch adds one to ``masked_attention.launches``, each
+backward to ``masked_attention.backward_launches``.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from weed_instance_segmentation_tpu_torch.ops.cuda_build import (
-    check_attention_inputs, entry_point, launch, sm_count,
+    check_aligned, check_attention_inputs, entry_point, launch, sm_count,
 )
 
 _LIBRARY = 'masked_attention'
@@ -39,15 +44,33 @@ KEY_TILE, ROW_TILE = 64, 128  # a bf16 forward or dQ block's key tile and query 
 BLOCKS_PER_SM = 2  # bf16 forward or dQ blocks an SM holds at once (256 threads each)
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Float32 scores with the −1e9 bias where ``mask``."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    bias = torch.zeros(mask.shape, dtype=torch.float32, device=mask.device)
+    return scores + bias.masked_fill_(mask, MASKED_BIAS)
+
+
 def masked_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            mask: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version: scores + additive bias → softmax → PV, in
     float32, returned in ``q``'s dtype."""
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    bias = torch.zeros(mask.shape, dtype=torch.float32, device=mask.device)
-    scores = scores + bias.masked_fill_(mask, MASKED_BIAS)
-    probs = torch.softmax(scores, dim=-1)
+    probs = torch.softmax(_scores(q, k, mask), dim=-1)
     return torch.matmul(probs, v.float()).to(q.dtype)
+
+
+def masked_attention_vjp_plain(q, k, v, mask, grad_out):
+    """(dQ, dK, dV) of :func:`masked_attention_plain` for the cotangent
+    ``grad_out``, in float32 with the operations of its autograd graph (the
+    same bits on the CPU), returned in the inputs' dtypes."""
+    probs = torch.softmax(_scores(q, k, mask), dim=-1)
+    g = grad_out.float()
+    dv = torch.matmul(probs.transpose(-1, -2), g)
+    dprobs = torch.matmul(g, v.float().transpose(-1, -2))
+    ds = torch._softmax_backward_data(dprobs, probs, -1, torch.float32)
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(q.float().transpose(-1, -2), ds).transpose(-1, -2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(q, k, v, mask) -> None:
@@ -66,9 +89,6 @@ def _check_kernel(q, k, v, mask) -> None:
     if q.shape[2] > MAX_QUERIES or k.shape[2] < 1:
         raise ValueError(f'the kernel takes at most {MAX_QUERIES} queries and at least one '
                          f'key, got q {tuple(q.shape)}, k {tuple(k.shape)}')
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError('the bfloat16 kernels read 16-byte vectors: q, k and v must start '
-                         'at 16-byte-aligned addresses')
 
 
 def key_chunks(batch_heads: int, nq: int, ns: int, sms: int) -> int:
@@ -83,51 +103,90 @@ def key_chunks(batch_heads: int, nq: int, ns: int, sms: int) -> int:
     return -(-key_tiles // -(-key_tiles // chunks))
 
 
-class _MaskedAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, mask):
-        b, heads, nq, head_dim = q.shape
-        ns, bf16 = k.shape[2], q.dtype == torch.bfloat16
-        out = torch.empty_like(q)
-        lse = torch.empty((b, heads, nq), dtype=torch.float32, device=q.device)
-        chunks, part = 1, None  # the f32 kernel takes no key split
-        if bf16:
-            chunks = key_chunks(b * heads, nq, ns, sm_count(q.device.index))
-            if chunks > 1:  # the chunks' O (chunks, B, H, Q, D), then their row (max, sum)
-                part = torch.empty(chunks * b * heads * nq * (head_dim + 2), dtype=torch.float32,
-                                   device=q.device)
-        launch(entry_point(_LIBRARY, 'wis_masked_attention_fwd', 7, 7), q.device,
-               f'masked attention forward for q {tuple(q.shape)}',
-               q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-               lse.data_ptr(), None if part is None else part.data_ptr(), b, heads, nq, ns,
-               head_dim, int(bf16), chunks)
-        masked_attention.launches += 1
-        ctx.save_for_backward(q, k, v, out, lse, mask)
-        ctx.mark_non_differentiable(lse)
-        return out
+@torch.library.custom_op('wistpu::masked_attention_fwd', mutates_args=(), device_types='cpu',
+                         schema='(Tensor q, Tensor k, Tensor v, Tensor mask) -> (Tensor, Tensor)')
+def _forward_op(q, k, v, mask):
+    scores = _scores(q, k, mask)
+    out = torch.matmul(torch.softmax(scores, dim=-1), v.float()).to(q.dtype)
+    return out, torch.logsumexp(scores, dim=-1)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        q, k, v, out, lse, mask = ctx.saved_tensors
-        grad_out = grad_out.to(q.dtype).contiguous()
-        if grad_out.data_ptr() % 16:
-            grad_out = grad_out.clone()
-        b, heads, nq, head_dim = q.shape
-        ns, bf16 = k.shape[2], q.dtype == torch.bfloat16
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        delta = torch.empty_like(lse)
-        chunks, dq_part = 0, None  # the f32 kernels take no key split
-        if bf16:
-            chunks = key_chunks(b * heads, nq, ns, sm_count(q.device.index))
-            dq_part = torch.empty((chunks, *q.shape), dtype=torch.float32, device=q.device)
-        launch(entry_point(_LIBRARY, 'wis_masked_attention_bwd', 12, 7), q.device,
-               f'masked attention backward for q {tuple(q.shape)}',
-               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
-               lse.data_ptr(), mask.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-               delta.data_ptr(), dq_part.data_ptr() if bf16 else None, b, heads, nq, ns,
-               head_dim, int(bf16), chunks)
-        masked_attention.backward_launches += 1
-        return dq, dk, dv, None
+
+@_forward_op.register_kernel('cuda')
+def _forward_cuda(q, k, v, mask):
+    check_aligned(q, k, v)
+    b, heads, nq, head_dim = q.shape
+    ns, bf16 = k.shape[2], q.dtype == torch.bfloat16
+    out = torch.empty_like(q)
+    lse = torch.empty((b, heads, nq), dtype=torch.float32, device=q.device)
+    chunks, part = 1, None  # the f32 kernel takes no key split
+    if bf16:
+        chunks = key_chunks(b * heads, nq, ns, sm_count(q.device.index))
+        if chunks > 1:  # the chunks' O (chunks, B, H, Q, D), then their row (max, sum)
+            part = torch.empty(chunks * b * heads * nq * (head_dim + 2), dtype=torch.float32,
+                               device=q.device)
+    launch(entry_point(_LIBRARY, 'wis_masked_attention_fwd', 7, 7), q.device,
+           f'masked attention forward for q {tuple(q.shape)}',
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+           lse.data_ptr(), None if part is None else part.data_ptr(), b, heads, nq, ns,
+           head_dim, int(bf16), chunks)
+    masked_attention.launches += 1
+    return out, lse
+
+
+@_forward_op.register_fake
+def _forward_fake(q, k, v, mask):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+@torch.library.custom_op('wistpu::masked_attention_bwd', mutates_args=(), device_types='cpu',
+                         schema='(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, '
+                                'Tensor mask, Tensor grad_out) -> (Tensor, Tensor, Tensor)')
+def _backward_op(q, k, v, out, lse, mask, grad_out):
+    return masked_attention_vjp_plain(q, k, v, mask, grad_out)
+
+
+@_backward_op.register_kernel('cuda')
+def _backward_cuda(q, k, v, out, lse, mask, grad_out):
+    if grad_out.data_ptr() % 16:
+        grad_out = grad_out.clone()
+    b, heads, nq, head_dim = q.shape
+    ns, bf16 = k.shape[2], q.dtype == torch.bfloat16
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    chunks, dq_part = 0, None  # the f32 kernels take no key split
+    if bf16:
+        chunks = key_chunks(b * heads, nq, ns, sm_count(q.device.index))
+        dq_part = torch.empty((chunks, *q.shape), dtype=torch.float32, device=q.device)
+    launch(entry_point(_LIBRARY, 'wis_masked_attention_bwd', 12, 7), q.device,
+           f'masked attention backward for q {tuple(q.shape)}',
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
+           lse.data_ptr(), mask.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+           delta.data_ptr(), dq_part.data_ptr() if bf16 else None, b, heads, nq, ns,
+           head_dim, int(bf16), chunks)
+    masked_attention.backward_launches += 1
+    return dq, dk, dv
+
+
+@_backward_op.register_fake
+def _backward_fake(q, k, v, out, lse, mask, grad_out):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, mask = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse, mask)
+    ctx.mark_non_differentiable(lse)
+    ctx.set_materialize_grads(False)
+
+
+def _backward(ctx, grad_out, _grad_lse):
+    q, k, v, out, lse, mask = ctx.saved_tensors
+    grads = _backward_op(q, k, v, out, lse, mask, grad_out.to(q.dtype).contiguous())
+    return *grads, None
+
+
+_forward_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -139,12 +198,11 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous, D in {16, 32, 64}, Q ≤ 512; bfloat16 16-byte aligned) and,
     under autograd, its backward kernels. On CPU tensors it runs :func:`masked_attention_plain`."""
     _check(q, k, v, mask)
-    if q.device.type == 'cpu':
-        return masked_attention_plain(q, k, v, mask)
-    if q.device.type != 'cuda':
+    if q.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'no kernel for device {q.device}')
-    _check_kernel(q, k, v, mask)
-    return _MaskedAttention.apply(q, k, v, mask)
+    if q.device.type == 'cuda':
+        _check_kernel(q, k, v, mask)
+    return _forward_op(q, k, v, mask)[0]
 
 
 masked_attention.launches = 0

@@ -18,6 +18,8 @@ the bands' partial sums in band order; see the note there on what bounds
 it); :func:`band_plan` sizes the bands and :func:`shared_layout` lays out a
 block's shared memory. A CPU tensor goes to
 :func:`fused_upsample_stats_plain`, the separable matmul with the same taps.
+Both are the implementations of one registered operator,
+``torch.ops.wistpu.fused_upsample_stats``, which ``torch.export`` records.
 Kernel and plain version agree up to float32 summation order: a bin can flip
 only where the upsampled logit is within rounding of zero.
 """
@@ -154,19 +156,37 @@ def _check(mask_logits: torch.Tensor, score_hw: tuple[int, int]) -> None:
         raise ValueError('sizes beyond the kernel\'s 32-bit map and pixel counts')
 
 
+@torch.library.custom_op('wistpu::fused_upsample_stats', mutates_args=(), device_types='cpu',
+                         schema='(Tensor mask_logits, int[] score_hw) -> (Tensor, Tensor, Tensor)')
+def _op(mask_logits, score_hw):
+    return fused_upsample_stats_plain(mask_logits, tuple(score_hw))
+
+
+@_op.register_kernel('cuda')
+def _op_cuda(mask_logits, score_hw):
+    return _launch(mask_logits, tuple(score_hw), BAND_ROWS, WARPS, SHARED_TARGET)
+
+
+@_op.register_fake
+def _op_fake(mask_logits, score_hw):
+    b, q = mask_logits.shape[:2]
+    return (mask_logits.new_empty((b, q)), mask_logits.new_empty((b, q)),
+            mask_logits.new_empty((b, q, *score_hw), dtype=torch.int8))
+
+
 def fused_upsample_stats(mask_logits: torch.Tensor, score_hw: tuple[int, int] = (384, 384)):
     """(B, Q, Hm, Wm) f32 contiguous mask logits → (sig_sum (B, Q) f32,
     pos_cnt (B, Q) f32, bin_i8 (B, Q, sh, sw) int8).
 
-    On a CUDA tensor this launches the kernel (and raises if it cannot); on a
-    CPU tensor it runs :func:`fused_upsample_stats_plain`. Each launch adds
-    one to ``fused_upsample_stats.launches``."""
+    Calls the registered operator ``torch.ops.wistpu.fused_upsample_stats``
+    (so that ``torch.export`` records it): on a CUDA tensor it launches the
+    kernel (and raises if it cannot); on a CPU tensor it runs
+    :func:`fused_upsample_stats_plain`. Each launch adds one to
+    ``fused_upsample_stats.launches``."""
     _check(mask_logits, score_hw)
-    if mask_logits.device.type == 'cpu':
-        return fused_upsample_stats_plain(mask_logits, score_hw)
-    if mask_logits.device.type != 'cuda':
+    if mask_logits.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'no kernel for device {mask_logits.device}')
-    return _launch(mask_logits, score_hw, BAND_ROWS, WARPS, SHARED_TARGET)
+    return _op(mask_logits, list(score_hw))
 
 
 def _launch(mask_logits: torch.Tensor, score_hw: tuple[int, int], band_rows: int, warps: int,

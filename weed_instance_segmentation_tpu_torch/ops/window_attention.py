@@ -10,20 +10,24 @@ q/k/v are (NW, H, T, D) with the windows in the order of
 ``models/swin.py::window_partition`` (image-major), so window ``w`` belongs to
 image ``w // nW_img`` and takes mask ``w % nW_img``.
 
-A CUDA tensor goes to ``csrc/window_attention.cu`` through a
-``torch.autograd.Function`` whose backward is the hand-written backward
-kernel (dQ, dK, dV, and dBias summed over windows); a CPU tensor goes to
-:func:`window_attention_plain` under autograd. In bfloat16 the forward and
-the backward run on tensor cores, and float32 on CUDA cores. The forward
-takes one block per (window, head). It flags, once, which image windows'
+The forward and the backward are registered operators,
+``torch.ops.wistpu.window_attention_fwd`` → (O, row log-sum-exp in float32)
+and ``torch.ops.wistpu.window_attention_bwd`` → (dQ, dK, dV, dBias summed
+over windows), so that ``torch.export`` records them (``engine/export.py``);
+the forward's autograd formula calls the backward. For a CUDA tensor each
+launches ``csrc/window_attention.cu``; for a CPU tensor the forward is
+:func:`window_attention_plain` and the backward its vector-Jacobian product
+(:func:`window_attention_vjp_plain`). In bfloat16 the forward and the
+backward run on tensor cores, and float32 on CUDA cores. The forward takes
+one block per (window, head). Each launch first flags which image windows'
 shift masks hold a nonzero entry (a window with an all-zero mask reads
-none), and saves the flags for the backward. Each block of the backward
-takes one head and a run of windows (:func:`window_runs`) and writes its
-dBias partial to a float32 scratch that a second launch sums in run order,
-so dBias has the same bits on every call. The forward takes T ≤ ``MAX_TOKENS``, the backward T ≤
+none). Each block of the backward takes one head and a run of windows
+(:func:`window_runs`) and writes its dBias partial to a float32 scratch that
+a second launch sums in run order, so dBias has the same bits on every call.
+The forward takes T ≤ ``MAX_TOKENS``, the backward T ≤
 ``BACKWARD_MAX_TOKENS``. There is no fallback: on a CUDA tensor the wrapper
-launches the kernels or raises. Each forward call adds one to
-``window_attention.launches``, each backward call to
+launches the kernels or raises. Each forward launch adds one to
+``window_attention.launches``, each backward launch to
 ``window_attention.backward_launches``.
 """
 
@@ -34,7 +38,7 @@ import math
 import torch
 
 from weed_instance_segmentation_tpu_torch.ops.cuda_build import (
-    check_attention_inputs, entry_point, launch, sm_count,
+    check_aligned, check_attention_inputs, entry_point, launch, sm_count,
 )
 
 _LIBRARY = 'window_attention'
@@ -43,12 +47,8 @@ MAX_TOKENS = 256  # the forward
 BACKWARD_MAX_TOKENS = 144  # the backward: Swin's window 12; its bf16 dBias sum lives in registers
 
 
-def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           rel_bias: torch.Tensor,
-                           attn_mask: torch.Tensor | None) -> torch.Tensor:
-    """The plain PyTorch version: the matmul + softmax body of
-    ``WindowAttention.forward``, computed in float32 and returned in ``q``'s
-    dtype."""
+def _scores(q, k, rel_bias, attn_mask) -> torch.Tensor:
+    """Float32 scores: Q Kᵀ / sqrt(D) + rel_bias[h] (+ attn_mask[w % nW_img])."""
     nw, heads, tokens, head_dim = q.shape
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(head_dim)
     scores = scores + rel_bias.float()[None]
@@ -57,8 +57,34 @@ def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = scores.reshape(-1, n_img_windows, heads, tokens, tokens)
         scores = scores + attn_mask.float()[None, :, None]
         scores = scores.reshape(nw, heads, tokens, tokens)
-    probs = torch.softmax(scores, dim=-1)
+    return scores
+
+
+def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           rel_bias: torch.Tensor,
+                           attn_mask: torch.Tensor | None) -> torch.Tensor:
+    """The plain PyTorch version: the matmul + softmax body of
+    ``WindowAttention.forward``, computed in float32 and returned in ``q``'s
+    dtype."""
+    probs = torch.softmax(_scores(q, k, rel_bias, attn_mask), dim=-1)
     return torch.matmul(probs, v.float()).to(q.dtype)
+
+
+def window_attention_vjp_plain(q, k, v, rel_bias, attn_mask, grad_out):
+    """(dQ, dK, dV, dBias) of :func:`window_attention_plain` for the
+    cotangent ``grad_out``, in float32 with the operations of its autograd
+    graph (the same bits on the CPU); dQ, dK and dV in q's dtype, dBias
+    (H, T, T) float32, summed over the windows."""
+    probs = torch.softmax(_scores(q, k, rel_bias, attn_mask), dim=-1)
+    g = grad_out.float()
+    dv = torch.matmul(probs.transpose(-1, -2), g)
+    dprobs = torch.matmul(g, v.float().transpose(-1, -2))
+    ds = torch._softmax_backward_data(dprobs, probs, -1, torch.float32)
+    dbias = ds.sum(dim=0)
+    ds = ds / math.sqrt(q.shape[-1])
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(q.float().transpose(-1, -2), ds).transpose(-1, -2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
 
 
 def _check(q, k, v, rel_bias, attn_mask) -> None:
@@ -87,9 +113,6 @@ def _check_kernel(q, k, v, rel_bias, attn_mask) -> None:
                          f'{tuple(q.shape)} with an input that requires grad')
     if any(t.dtype != torch.float32 for t in extra):
         raise TypeError('rel_bias and attn_mask must be float32')
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError('the bfloat16 backward reads 16-byte vectors: q, k and v must start '
-                         'at 16-byte-aligned addresses')
 
 
 def window_runs(windows: int, heads: int, sms: int) -> int:
@@ -101,48 +124,99 @@ def window_runs(windows: int, heads: int, sms: int) -> int:
     return max(1, min(windows, sms // heads))
 
 
-class _WindowAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, rel_bias, attn_mask):
-        nw, heads, tokens, head_dim = q.shape
-        out = torch.empty_like(q)
-        lse = torch.empty((nw, heads, tokens), dtype=torch.float32, device=q.device)
-        n_img, mask_used = 1, None
-        if attn_mask is not None:  # which windows' masks hold a nonzero entry
-            n_img, mask_used = attn_mask.shape[0], attn_mask.flatten(1).any(1).view(torch.uint8)
-        launch(entry_point(_LIBRARY, 'wis_window_attention_fwd', 8, 6), q.device,
-               f'window attention forward for q {tuple(q.shape)}',
-               q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_bias.data_ptr(),
-               None if attn_mask is None else attn_mask.data_ptr(),
-               None if mask_used is None else mask_used.data_ptr(), out.data_ptr(),
-               lse.data_ptr(), nw, heads, tokens, head_dim, n_img, int(q.dtype == torch.bfloat16))
-        window_attention.launches += 1
-        ctx.save_for_backward(q, k, v, out, lse, rel_bias, attn_mask, mask_used)
-        ctx.mark_non_differentiable(lse)
-        return out
+def _mask_flags(attn_mask: torch.Tensor) -> torch.Tensor:
+    """uint8 (nW_img,): which image windows' shift masks hold a nonzero entry
+    (a window with an all-zero mask reads none)."""
+    return attn_mask.flatten(1).any(1).view(torch.uint8)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        q, k, v, out, lse, rel_bias, attn_mask, mask_used = ctx.saved_tensors
-        grad_out = grad_out.to(q.dtype).contiguous()
-        if grad_out.data_ptr() % 16:
-            grad_out = grad_out.clone()
-        nw, heads, tokens, head_dim = q.shape
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        dbias = torch.empty((heads, tokens, tokens), dtype=torch.float32, device=q.device)
-        runs = window_runs(nw, heads, sm_count(q.device.index))
-        part = torch.empty((runs, heads, tokens, tokens), dtype=torch.float32, device=q.device)
-        n_img = 1 if attn_mask is None else attn_mask.shape[0]
-        launch(entry_point(_LIBRARY, 'wis_window_attention_bwd', 14, 7), q.device,
-               f'window attention backward for q {tuple(q.shape)}',
-               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
-               lse.data_ptr(), rel_bias.data_ptr(),
-               None if attn_mask is None else attn_mask.data_ptr(),
-               None if mask_used is None else mask_used.data_ptr(), dq.data_ptr(),
-               dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), part.data_ptr(), nw, heads,
-               tokens, head_dim, n_img, int(q.dtype == torch.bfloat16), runs)
-        window_attention.backward_launches += 1
-        return dq, dk, dv, dbias, None
+
+@torch.library.custom_op('wistpu::window_attention_fwd', mutates_args=(), device_types='cpu',
+                         schema='(Tensor q, Tensor k, Tensor v, Tensor rel_bias, '
+                                'Tensor? attn_mask) -> (Tensor, Tensor)')
+def _forward_op(q, k, v, rel_bias, attn_mask):
+    scores = _scores(q, k, rel_bias, attn_mask)
+    out = torch.matmul(torch.softmax(scores, dim=-1), v.float()).to(q.dtype)
+    return out, torch.logsumexp(scores, dim=-1)
+
+
+@_forward_op.register_kernel('cuda')
+def _forward_cuda(q, k, v, rel_bias, attn_mask):
+    check_aligned(q, k, v)
+    nw, heads, tokens, head_dim = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((nw, heads, tokens), dtype=torch.float32, device=q.device)
+    n_img, mask_used = 1, None
+    if attn_mask is not None:
+        n_img, mask_used = attn_mask.shape[0], _mask_flags(attn_mask)
+    launch(entry_point(_LIBRARY, 'wis_window_attention_fwd', 8, 6), q.device,
+           f'window attention forward for q {tuple(q.shape)}',
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_bias.data_ptr(),
+           None if attn_mask is None else attn_mask.data_ptr(),
+           None if mask_used is None else mask_used.data_ptr(), out.data_ptr(),
+           lse.data_ptr(), nw, heads, tokens, head_dim, n_img, int(q.dtype == torch.bfloat16))
+    window_attention.launches += 1
+    return out, lse
+
+
+@_forward_op.register_fake
+def _forward_fake(q, k, v, rel_bias, attn_mask):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+@torch.library.custom_op('wistpu::window_attention_bwd', mutates_args=(), device_types='cpu',
+                         schema='(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, '
+                                'Tensor rel_bias, Tensor? attn_mask, Tensor grad_out) '
+                                '-> (Tensor, Tensor, Tensor, Tensor)')
+def _backward_op(q, k, v, out, lse, rel_bias, attn_mask, grad_out):
+    return window_attention_vjp_plain(q, k, v, rel_bias, attn_mask, grad_out)
+
+
+@_backward_op.register_kernel('cuda')
+def _backward_cuda(q, k, v, out, lse, rel_bias, attn_mask, grad_out):
+    if grad_out.data_ptr() % 16:
+        grad_out = grad_out.clone()
+    nw, heads, tokens, head_dim = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dbias = torch.empty((heads, tokens, tokens), dtype=torch.float32, device=q.device)
+    runs = window_runs(nw, heads, sm_count(q.device.index))
+    part = torch.empty((runs, heads, tokens, tokens), dtype=torch.float32, device=q.device)
+    n_img, mask_used = 1, None
+    if attn_mask is not None:
+        n_img, mask_used = attn_mask.shape[0], _mask_flags(attn_mask)
+    launch(entry_point(_LIBRARY, 'wis_window_attention_bwd', 14, 7), q.device,
+           f'window attention backward for q {tuple(q.shape)}',
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
+           lse.data_ptr(), rel_bias.data_ptr(),
+           None if attn_mask is None else attn_mask.data_ptr(),
+           None if mask_used is None else mask_used.data_ptr(), dq.data_ptr(),
+           dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), part.data_ptr(), nw, heads,
+           tokens, head_dim, n_img, int(q.dtype == torch.bfloat16), runs)
+    window_attention.backward_launches += 1
+    return dq, dk, dv, dbias
+
+
+@_backward_op.register_fake
+def _backward_fake(q, k, v, out, lse, rel_bias, attn_mask, grad_out):
+    return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+            rel_bias.new_empty(rel_bias.shape, dtype=torch.float32))
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, rel_bias, attn_mask = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse, rel_bias, attn_mask)
+    ctx.mark_non_differentiable(lse)
+    ctx.set_materialize_grads(False)
+
+
+def _backward(ctx, grad_out, _grad_lse):
+    q, k, v, out, lse, rel_bias, attn_mask = ctx.saved_tensors
+    dq, dk, dv, dbias = _backward_op(q, k, v, out, lse, rel_bias, attn_mask,
+                                     grad_out.to(q.dtype).contiguous())
+    return dq, dk, dv, dbias.to(rel_bias.dtype), None
+
+
+_forward_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -157,14 +231,13 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     backward kernel under autograd; the mask takes no gradient. On CPU
     tensors it runs :func:`window_attention_plain`."""
     _check(q, k, v, rel_bias, attn_mask)
-    if q.device.type == 'cpu':
-        return window_attention_plain(q, k, v, rel_bias, attn_mask)
-    if q.device.type != 'cuda':
+    if q.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'no kernel for device {q.device}')
-    _check_kernel(q, k, v, rel_bias, attn_mask)
+    if q.device.type == 'cuda':
+        _check_kernel(q, k, v, rel_bias, attn_mask)
     if attn_mask is not None and attn_mask.requires_grad:
         raise ValueError('attn_mask is a constant: it takes no gradient')
-    return _WindowAttention.apply(q, k, v, rel_bias, attn_mask)
+    return _forward_op(q, k, v, rel_bias, attn_mask)[0]
 
 
 window_attention.launches = 0
