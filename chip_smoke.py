@@ -97,6 +97,18 @@ Phases, each of which must pass (the script exits non-zero on any failure):
    program loaded here equal to the live ``make_serving_fn``'s (scores
    within 1e-5), and the loaded program's and the live function's median
    ms a request, img/s and peak memory, timed in turns.
+10. data parallelism (``phase_data_parallel``, in phase_trainer's directory):
+   ``engine.train.main()`` as two processes sharing the card over ``gloo``
+   (workers: ``python3 chip_smoke.py --data-parallel-rank <json>``),
+   ``DATA_PARALLEL=2``, Swin-L 800² bf16, ``BATCH_SIZE`` 4 (2 a rank),
+   accumulation 2, remat, one epoch over phase_trainer's cache: the
+   averaged first loss against one process on the same global batch (rtol
+   ``DP_LOSS_RTOL``), each rank's launches equal to the loops' count (the
+   sharded test phase's post-process included), the metadata and metric
+   dict, and every file of the run written by rank 0 alone; each rank's
+   micro-step ms, epoch img/s and peak memory. Then one micro-step with the
+   ``WISTPU_AUGMENT`` recipe and the augmentation at
+   b2 800² on the card against the CPU on the same factors.
 
 The last lines are a JSON summary of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -1515,6 +1527,236 @@ def phase_trainer(dev: torch.device, root: str) -> dict:
     return launches
 
 
+DP_RANKS, DP_BATCH = 2, 4  # two processes share the card; the global batch, 2 rows a rank
+DP_LOSS_RTOL = 2e-2  # bf16 autocast: the first loss of b2 ranks against one b4 process
+DP_TIMEOUT = 600
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        return sock.getsockname()[1]
+
+
+def _dp_config(root: str, data_parallel: int) -> tuple:
+    """phase_trainer's settings, with the global batch of 4 over
+    ``data_parallel`` ranks, writing under ``<root>/dp<n>``."""
+    return _trainer_config(root, 'swin-large', 1) + (
+        (config, 'BATCH_SIZE', DP_BATCH), (config, 'DATA_PARALLEL', data_parallel),
+        (config, 'MODELS_OUTPUT_DIR', os.path.join(root, f'dp{data_parallel}', 'models') + '/'))
+
+
+def _dp_worker(spec: dict) -> None:
+    """One rank of ``engine.train.main()`` (``python3 chip_smoke.py
+    --data-parallel-rank <json>``): times each micro-step and the epoch,
+    records the losses, launches, peak memory and the files this rank
+    created, into ``<out>/rank<r>.json``."""
+    from weed_instance_segmentation_tpu_torch.engine.steps import TrainStep
+
+    rank = spec['rank']
+    os.environ.update({'WISTPU_COORDINATOR': f'localhost:{spec["port"]}',
+                       'WISTPU_NUM_PROCESSES': str(DP_RANKS), 'WISTPU_PROCESS_ID': str(rank)})
+    report = {'losses': [], 'step_ms': []}
+    writes = []
+
+    def audit(event, args):  # the files and directories this rank creates
+        if event == 'open' and isinstance(args[0], str) and isinstance(args[1], str) and any(
+                m in args[1] for m in 'wax+'):
+            writes.append(args[0])
+        elif event == 'os.mkdir':
+            writes.append(str(args[0]))
+
+    class TimedStep(TrainStep):
+        def __call__(self, batch, draws=None):
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            loss = super().__call__(batch, draws)
+            report['losses'].append(loss.item())
+            report['step_ms'].append(1e3 * (time.perf_counter() - t_start))
+            return loss
+
+    def timed_batches(loader, device):
+        t_start, n = time.perf_counter(), 0
+        for batch in device_batches(loader, device):
+            n += 1
+            yield batch
+        torch.cuda.synchronize()
+        if loader.shuffle:
+            report['epoch_s'] = time.perf_counter() - t_start
+            report['epoch_images'] = len(loader.dataset)
+
+    sys.addaudithook(audit)
+    with _patched(*_dp_config(spec['root'], DP_RANKS),
+                  (engine_train, 'make_train_step', TimedStep),
+                  (engine_train, 'device_batches', timed_batches)):
+        reset_counts()
+        engine_train.main()
+        report['launches'] = counts()
+    report['peak_gib'] = torch.cuda.max_memory_allocated() / 2**30
+    run_root = os.path.join(spec['root'], f'dp{DP_RANKS}') + os.sep
+    report['writes'] = sorted({w for w in writes if w.startswith(run_root)})
+    with open(os.path.join(spec['out'], f'rank{rank}.json'), 'w') as f:
+        json.dump(report, f)
+
+
+def _run_ranks(root: str, out: str) -> list[dict]:
+    """``engine.train.main()`` as two processes on the card; their reports.
+    Every process started here is stopped before this returns."""
+    os.makedirs(out, exist_ok=True)
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--data-parallel-rank', json.dumps(
+            {'rank': r, 'port': port, 'root': root, 'out': out})],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(DP_RANKS)]
+    outputs = []
+    try:
+        for proc in procs:
+            outputs.append(proc.communicate(timeout=DP_TIMEOUT)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for r, (proc, text) in enumerate(zip(procs, outputs)):
+        check(proc.returncode == 0, f'data-parallel rank {r} exited {proc.returncode}:\n'
+              f'{text[-6000:]}')
+    reports = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(out, f'rank{r}.json')) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def _one_process_first_loss(dev: torch.device, root: str) -> tuple:
+    """The first micro-step of the trainer's run on one process with the
+    whole global batch of 4 (the trainer's labels, seed, loader order and
+    draws), then one micro-step with ``augment`` on: (loss, augmented loss,
+    the augmented step's launches)."""
+    from weed_instance_segmentation_tpu_torch.datasets.dataset_utils import (
+        ConcatDataset, compute_static_pad_hw,
+    )
+    from weed_instance_segmentation_tpu_torch.engine.model_utils import build_model_for_labels
+    from weed_instance_segmentation_tpu_torch.processing.augment import AugmentConfig
+
+    with _patched(*_dp_config(root, 1)):
+        id2label, label2id = engine_train.get_unified_labels(config.DATASET_LIST)
+        dirs = [os.path.join(pheno_bench.PROCESSED_DIR, s) for s in engine_train.SPLITS]
+        pad_hw, data_instances = compute_static_pad_hw(dirs)
+        collate = make_train_collate(pad_hw, min(max(data_instances, 1), config.MAX_INSTANCES),
+                                     DP_BATCH)
+        train_set = ConcatDataset([PreprocessedDataset(dirs[0], keys=TRAIN_SAMPLE_KEYS)])
+        batch = next(device_batches(DataLoader(train_set, DP_BATCH, collate, shuffle=True), dev))
+        losses, launches = [], None
+        for augment in (None, AugmentConfig()):
+            model, cfg = build_model_for_labels(id2label, label2id, device=dev)
+            step = make_train_step(model, cfg, make_optimizer(model.parameters(), LEARNING_RATE),
+                                   ACCUMULATION, torch.bfloat16, seed=engine_train.TRAIN_SEED,
+                                   augment=augment)
+            reset_counts()
+            losses.append(step(batch).item())
+            launches = counts()
+            del model, step
+            torch.cuda.empty_cache()
+    return losses[0], losses[1], launches
+
+
+def _augment_card_vs_cpu(dev: torch.device) -> str:
+    """``apply_factors`` at the trainer's shape (b2, 800², 10 instances) on
+    the card against the CPU on the same factors: pixels within 1e-4 of
+    ±2.6, the masks, pixel mask and ``instance_valid`` the same bits."""
+    from weed_instance_segmentation_tpu_torch.processing.augment import (
+        AugmentConfig, apply_factors, draw_factors,
+    )
+
+    collate = make_train_collate((TRAIN_HW, TRAIN_HW), TRAIN_INSTANCES, TRAIN_BATCH)
+    batch = to_device(collate([_SynthRaw(2)[i] for i in range(2)]), 'cpu')
+    batch['pixel_mask'][1, 700:] = 0.0  # one image with padding, as a wider batch leaves it
+    cfg = AugmentConfig(hflip_prob=0.5, scale_prob=1.0)
+    factors = draw_factors(TRAIN_BATCH, cfg, torch.Generator().manual_seed(5), 'cpu')
+    want = apply_factors(batch, factors, cfg)
+    got = apply_factors({k: v.to(dev) for k, v in batch.items()},
+                        {k: v.to(dev) for k, v in factors.items()}, cfg)
+    err = (got['pixel_values'].cpu() - want['pixel_values']).abs().max().item()
+    check(err <= 1e-4, f'augmentation pixels card vs CPU: {err:.3e} beyond 1e-4')
+    for key in ('mask_labels', 'pixel_mask', 'instance_valid'):
+        differ = int((got[key].cpu() != want[key]).sum())
+        check(differ == 0, f'augmentation {key} card vs CPU: {differ} entries differ')
+    return (f'scale {[round(v, 4) for v in factors["scale"].tolist()]}, flip '
+            f'{factors["flip"].tolist()}: pixels max abs err {err:.3e}, masks, pixel mask and '
+            f'instance_valid the same bits')
+
+
+def phase_data_parallel(dev: torch.device, root: str) -> dict:
+    """``engine.train.main()`` as two processes on the one card (``gloo``:
+    NCCL refuses two ranks on one device), ``DATA_PARALLEL=2``, Swin-L 800²
+    bf16, ``BATCH_SIZE`` 4 (2 a rank), accumulation 2, remat, one epoch over
+    phase_trainer's cache (Train 8, Validate 2, Test 4): the averaged first
+    loss against one process on the same global batch (rtol
+    ``DP_LOSS_RTOL``), each rank's launches against the loops' count (the
+    sharded test phase's post-process included), the metadata and metric
+    dict, and every file of the run written by rank 0 alone; each rank's
+    micro-step ms, the epoch's img/s and the peak memory. Then a micro-step
+    with ``WISTPU_AUGMENT``'s recipe, and the augmentation on the card
+    against the CPU. Two ranks on one card measure correctness, not
+    scaling. ``MODEL_PARALLEL=2`` is not run here: FSDP2 over ``gloo`` on
+    CUDA tensors crashed both ranks (PERF.md §7), so the model-sharded path
+    is held on the CPU until a machine has two cards."""
+    torch.cuda.empty_cache()
+    want, augmented, aug_launches = _one_process_first_loss(dev, root)
+    cfg = config_for_arch('swin-large')
+    blocks, masked = sum(cfg.backbone_config.depths), cfg.decoder_layers - 1
+    micro_steps = TRAINER_SPLITS['Train'] // DP_BATCH
+    val_batches = test_batches = 1
+    expected = {'window_attention_fwd': (2 * micro_steps + val_batches + test_batches) * blocks,
+                'window_attention_bwd': micro_steps * blocks,
+                'masked_attention_fwd': (micro_steps + val_batches + test_batches) * masked,
+                'masked_attention_bwd': micro_steps * masked,
+                'fused_upsample_stats': TRAINER_SPLITS['Test'] // DP_RANKS}
+    t0 = time.perf_counter()
+    reports = _run_ranks(root, os.path.join(root, 'dp_reports'))
+    log(f'data parallel: two engine.train.main() processes in {time.perf_counter() - t0:.1f} s')
+    run_root = os.path.join(root, f'dp{DP_RANKS}', 'models', 'mask2former_fine_tuned')
+    (run_dir,) = [os.path.join(run_root, d) for d in os.listdir(run_root)]
+    with open(os.path.join(run_dir, 'metadata.json')) as f:
+        metadata = json.load(f)
+    missing = [key for key in TRAINER_KEYS if key not in metadata]
+    check(not missing, f'data-parallel metadata lacks {missing}')
+    _check_metric_dict(metadata['test_metrics'], 'data-parallel test_metrics')
+    for r, report in enumerate(reports):
+        log(f'data parallel rank {r}: micro-step {statistics.median(report["step_ms"]):.1f} ms '
+            f'median ({", ".join(f"{t:.1f}" for t in report["step_ms"])}), epoch '
+            f'{report["epoch_images"] / report["epoch_s"]:.3f} img/s over '
+            f'{1e3 * report["epoch_s"]:.1f} ms, peak memory {report["peak_gib"]:.2f} GiB, '
+            f'launches {report["launches"]}')
+        check(report['launches'] == expected,
+              f'rank {r} launches {report["launches"]}, the loops imply {expected}')
+        check(len(report['losses']) == micro_steps
+              and all(math.isfinite(x) for x in report['losses']),
+              f'rank {r} losses {report["losses"]}')
+    check(reports[0]['losses'] == reports[1]['losses'],
+          'the ranks report different averaged losses')
+    written = reports[0]['writes']
+    for path in ('best_model/params.npz', 'train_state/opt_state.npz', 'metadata.json'):
+        check(os.path.join(run_dir, path) in written, f'rank 0 did not write {path}')
+    check(reports[1]['writes'] == [], f'rank 1 wrote {reports[1]["writes"][:5]}')
+    rel = abs(reports[0]['losses'][0] - want) / abs(want)
+    log(f'data parallel: losses {reports[0]["losses"]}, the first against one process on the '
+        f'global batch {want:.6f}: rel {rel:.3e} (rtol {DP_LOSS_RTOL}); map '
+        f'{metadata["test_metrics"]["map"]}; rank 0 alone wrote the run\'s {len(written)} '
+        f'files and directories')
+    check(rel <= DP_LOSS_RTOL, f'first loss {reports[0]["losses"][0]:.6f} against one process '
+          f'{want:.6f}: {rel:.3e} beyond {DP_LOSS_RTOL}')
+    check(math.isfinite(augmented) and aug_launches['window_attention_bwd'] > 0
+          and aug_launches['masked_attention_bwd'] > 0,
+          f'augmented micro-step: loss {augmented}, launches {aug_launches}')
+    log(f'augmented micro-step (WISTPU_AUGMENT recipe, b{DP_BATCH}): loss {augmented:.4f} '
+        f'against {want:.4f} without, launches {aug_launches}')
+    log(f'augmentation card vs CPU at b{TRAIN_BATCH} {TRAIN_HW}²: {_augment_card_vs_cpu(dev)}')
+    return reports[0]['launches']
+
+
 def _tiny_cache_samples(n: int, split: str) -> list:
     """Tiny 64 x 96 samples (2 rectangles of labels 1 and 2) as a
     pheno_bench cache holds them."""
@@ -1941,6 +2183,9 @@ def phase_export(dev: torch.device, root: str) -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ['--data-parallel-rank']:
+        _dp_worker(json.loads(sys.argv[2]))
+        return 0
     if not torch.cuda.is_available():
         log('chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU')
         return 1
@@ -1989,8 +2234,10 @@ def main() -> int:
         phase_tiny_eval(dev, root)
     with tempfile.TemporaryDirectory() as root:
         trainer = phase_trainer(dev, root)
+        data_parallel = phase_data_parallel(dev, root)
     for name in KERNELS:
         check(trainer[name] > 0, f'the trainer run never launched {name}')
+        check(data_parallel[name] > 0, f'the data-parallel run never launched {name}')
 
     path = {'fused_upsample_stats': serving}
     kernels = []
@@ -2002,6 +2249,7 @@ def main() -> int:
                                              'eval': evaluation[name],
                                              'inference': inference[name],
                                              'trainer': trainer[name],
+                                             'data_parallel': data_parallel[name],
                                              'export': exported['swin-large'][name],
                                              'resnet': exported['resnet50'][name]},
                         **timing[name]})

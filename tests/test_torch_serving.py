@@ -139,6 +139,14 @@ sample = {'pixel_values': np.zeros((3, 64, 64), np.float32),
           'mask_labels': np.ones((1, 64, 64), np.uint8), 'class_labels': np.zeros(1, np.int64)}
 loss = step(to_device(make_train_collate((64, 64), 2, 1)([sample]), 'cpu'))
 assert torch.isfinite(loss), loss
+# the data-parallel layer and the augmentation, named: they import and run
+from weed_instance_segmentation_tpu_torch.parallel import mesh
+from weed_instance_segmentation_tpu_torch.processing import augment
+assert mesh.create_mesh(1, 1, 'cpu') is None and mesh.process_count() == 1
+assert mesh.rand_rows((2, 3), torch.Generator().manual_seed(0), 'cpu', (1, 2)).shape == (2, 3)
+batch = augment.augment_batch(to_device(make_train_collate((64, 64), 2, 1)([sample]), 'cpu'),
+                              augment.AugmentConfig(), torch.Generator().manual_seed(0))
+assert batch['pixel_values'].shape == (1, 3, 64, 64)
 # the evaluation path: a checkpoint, a crop_weed-style Test cache, engine.test
 import os, tempfile
 from weed_instance_segmentation_tpu_torch import config
@@ -206,8 +214,10 @@ pheno_bench.PROCESSED_DIR = os.path.join(root, 'pheno', 'Processed') + '/'
 for name, value in (('EPOCHS', 1), ('BATCH_SIZE', 2), ('MODEL_ARCH', 'tiny-test'),
                     ('MODEL_CHECKPOINT', os.path.join(root, 'none'))):
     setattr(config, name, value)
+os.environ['WISTPU_AUGMENT'] = '1'
 metadata = train.train(os.path.join(root, 'run'), {}, ['pheno_bench'], device='cpu')
 assert len(metadata['training_history']) == 1 and 'test_metrics' in metadata, metadata
+assert 'augmentation' in metadata, metadata
 # a raw read needs PIL, and raises ImportError at the call without it
 from weed_instance_segmentation_tpu_torch.datasets.base import open_rgb
 try:
@@ -221,10 +231,12 @@ print('imported', len(names), 'modules')
 
 
 def test_port_imports_nothing_of_jax():
-    """Every port module imports, and a tiny serving call, a tiny train
-    step, a tiny CPU ``engine.test`` over a fixture cache, a tiny
-    ``run_inference_array`` and worst-prediction scoring, and one tiny
-    trainer epoch from a pre-written cache run, with jax, flax, PIL,
+    """Every port module imports (``parallel/mesh.py`` and
+    ``processing/augment.py`` among them, each also called), and a tiny
+    serving call, a tiny train step, a tiny CPU ``engine.test`` over a
+    fixture cache, a tiny ``run_inference_array`` and worst-prediction
+    scoring, and one tiny trainer epoch with the augmentation from a
+    pre-written cache run, with jax, flax, PIL,
     matplotlib, transformers, safetensors, yaml and the JAX package made
     unimportable; reading an image file or drawing raises ImportError."""
     env = {**os.environ, 'PYTHONPATH': REPO + os.pathsep + os.environ.get('PYTHONPATH', '')}

@@ -3,7 +3,8 @@ the JAX package: a run from raw pheno_bench and crop_weed fixtures with the
 settings of ``tests/test_end_to_end.py``, its checkpoints read by the JAX
 package and its test metrics held to the JAX package's float32
 ``test_with_metrics``; a run resumed from its train state against an
-uninterrupted one, bit for bit; and the settings the port refuses."""
+uninterrupted one, bit for bit; and the parallel and augmentation settings
+in one process."""
 
 import contextlib
 import glob
@@ -88,7 +89,7 @@ def trained(tmp_path_factory):
 
 def test_train_from_raw_data(trained, monkeypatch):
     """The run's metadata has the JAX trainer's keys (but ``augmentation``,
-    which the port refuses) and one finite history entry; ``best_model/``,
+    written only with ``WISTPU_AUGMENT=1``) and one finite history entry; ``best_model/``,
     ``final_model/`` and ``train_state/`` are written; the cache holds both
     datasets' splits; ``preprocessor_config.json`` equals the one the JAX
     trainer writes under the same settings."""
@@ -269,16 +270,30 @@ def test_train_state_layout_mismatch_raises(resumed_runs, tmp_path, fault):
 
 
 @pytest.mark.parametrize('setting', ['DATA_PARALLEL', 'MODEL_PARALLEL', 'WISTPU_AUGMENT'])
-def test_unported_settings_raise(tmp_path, monkeypatch, setting):
-    """Data or model parallelism above 1 and the device-side augmentation
-    are not ported: ``train`` raises before it does anything."""
-    if setting == 'WISTPU_AUGMENT':
-        monkeypatch.setenv('WISTPU_AUGMENT', '1')
-    else:
+def test_parallel_and_augment_settings(trained, tmp_path, monkeypatch, setting):
+    """``DATA_PARALLEL`` or ``MODEL_PARALLEL`` of 2 in one process raises
+    before anything is written: the mesh needs two processes
+    (``tests/test_torch_parallel.py`` runs them). ``WISTPU_AUGMENT=1``
+    trains with the augmentation, recorded in the metadata."""
+    if setting != 'WISTPU_AUGMENT':
         monkeypatch.setattr(config, setting, 2)
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item'):
-        train.train(str(tmp_path / 'run'), {}, ['pheno_bench'], device='cpu')
-    assert not os.path.exists(tmp_path / 'run')
+        with pytest.raises(ValueError, match='needs 2 processes; this run has 1'):
+            train.train(str(tmp_path / 'run'), {}, ['pheno_bench'], device='cpu')
+        assert not os.path.exists(tmp_path / 'run')
+        return
+    _, _, root = trained
+    monkeypatch.setenv('WISTPU_AUGMENT', '1')
+    for name, value in E2E.items():
+        monkeypatch.setattr(config, name, value)
+    monkeypatch.setattr(config, 'DATASET_LIST', ['pheno_bench'])
+    monkeypatch.setattr(config, 'MODEL_CHECKPOINT', str(root / 'no-such-checkpoint'))
+    _point_pheno_bench(monkeypatch, str(root / 'pheno'), str(root / 'pheno' / 'Processed') + '/')
+    with _one_thread():
+        metadata = train.train(str(tmp_path / 'run'), {}, ['pheno_bench'], device='cpu')
+    assert metadata['augmentation'].startswith('AugmentConfig(')
+    (entry,) = metadata['training_history']
+    assert np.isfinite(entry['train_loss']) and np.isfinite(entry['val_loss'])
+    assert 'map' in metadata['test_metrics']
 
 
 @pytest.mark.parametrize('labels', ['same count', 'fewer labels'])

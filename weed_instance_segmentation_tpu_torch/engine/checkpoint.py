@@ -27,6 +27,15 @@ resume in the other.
 Arrays are written one at a time into the ``.npz`` (a zip of ``.npy``
 files, as ``np.savez`` writes it), so a save holds at most one parameter's
 host copy at once, not a second copy of the model.
+
+Under data parallelism (``parallel/mesh.py``) every rank calls a save at
+the same point and rank 0 alone writes: the tensors of an FSDP2-sharded
+model (parameters, AdamW moments, the accumulated gradient) are gathered
+whole, one at a time, by a collective every rank joins; the unfinished
+cycle's gradient of a DDP run, rank-local under ``no_sync``, is averaged
+over the ranks first. So the files are those one process would write. A
+load restores into a DDP-wrapped or FSDP2-sharded model and its
+optimizer on every rank, each tensor in its parameter's layout.
 """
 
 from __future__ import annotations
@@ -43,6 +52,9 @@ from weed_instance_segmentation_tpu_torch.models.configuration import Mask2Forme
 from weed_instance_segmentation_tpu_torch.models.convert import (
     flax_leaf, flax_path, load_hf_checkpoint, params_from_jax, torch_leaf,
 )
+from weed_instance_segmentation_tpu_torch.parallel.mesh import (
+    fetch_state, is_main, is_sharded, like_parameter, process_count, rank_mean, unwrap,
+)
 from weed_instance_segmentation_tpu_torch.processing.image_processor import (
     Mask2FormerImageProcessor,
 )
@@ -55,7 +67,12 @@ MOMENTS = ('exp_avg', 'exp_avg_sq')
 
 def _write_npz(path: str, items: Iterable[tuple[str, np.ndarray]]) -> None:
     """``np.savez(path, **dict(items))``, drawing and writing one array at
-    a time."""
+    a time; on a rank other than 0 the items are drawn (their gathers are
+    collectives) and nothing is written."""
+    if not is_main():
+        for _ in items:
+            pass
+        return
     with zipfile.ZipFile(path, 'w', zipfile.ZIP_STORED, allowZip64=True) as zf:
         for key, array in items:
             with zf.open(key + '.npy', 'w', force_zip64=True) as f:
@@ -63,8 +80,12 @@ def _write_npz(path: str, items: Iterable[tuple[str, np.ndarray]]) -> None:
 
 
 def _flax_items(named: Iterable[tuple[str, torch.Tensor]], prefix: str = ''):
-    """(``prefix`` + flax key, flax-layout array) of each (name, tensor)."""
-    for name, tensor in named:
+    """(``prefix`` + flax key, flax-layout array) of each (name, tensor),
+    a sharded tensor gathered whole first. On a rank other than 0 the
+    gathers run and nothing is yielded: rank 0 alone converts and writes."""
+    for name, tensor in fetch_state(named):
+        if not is_main():
+            continue
         path, array = flax_leaf(name, tensor)
         yield prefix + '/'.join(path), array
 
@@ -73,12 +94,14 @@ def save_pretrained(directory: str, state_dict: Mapping[str, torch.Tensor],
                     cfg: Mask2FormerConfig,
                     processor: Mask2FormerImageProcessor | None = None) -> None:
     """``config.json`` + ``params.npz`` of ``state_dict`` (a model's, on any
-    device and in any dtype; written as float32), and the processor's
-    ``preprocessor_config.json`` where one is given."""
-    os.makedirs(directory, exist_ok=True)
-    cfg.save_json(directory)
+    device and in any dtype, sharded or not; written as float32), and the
+    processor's ``preprocessor_config.json`` where one is given. Every rank
+    calls it; rank 0 writes."""
+    if is_main():
+        os.makedirs(directory, exist_ok=True)
+        cfg.save_json(directory)
     _write_npz(os.path.join(directory, PARAMS_FILE), _flax_items(state_dict.items()))
-    if processor is not None:
+    if processor is not None and is_main():
         processor.save_pretrained(directory)
 
 
@@ -124,14 +147,20 @@ def save_train_checkpoint(directory: str, model: torch.nn.Module,
                           extra: dict | None = None) -> None:
     """The resume point of a run: ``model``'s parameters, ``optimizer``'s
     AdamW state, and ``train_step``'s (``engine/steps.py::TrainStep``)
-    counters and unfinished accumulated gradient, plus ``extra``."""
-    os.makedirs(directory, exist_ok=True)
+    counters and unfinished accumulated gradient, plus ``extra``. ``model``
+    may be wrapped or sharded (``parallel/mesh.py::wrap_model``); every
+    rank calls it, rank 0 writes."""
+    model = unwrap(model)
+    if is_main():
+        os.makedirs(directory, exist_ok=True)
     _write_npz(os.path.join(directory, PARAMS_FILE), _flax_items(model.state_dict().items()))
 
     def opt_items():
         for name, p in model.named_parameters():
             state = optimizer.state.get(p, {})  # empty before the first update
             acc = p.grad if train_step.mini_step > 0 and p.grad is not None else None
+            if acc is not None and process_count() > 1 and not is_sharded(acc):
+                acc = rank_mean(acc)  # a DDP rank's own sum under no_sync
             for kind, tensor in (*((k, state.get(k)) for k in MOMENTS), ('acc_grad', acc)):
                 yield from _flax_items(
                     [(name, torch.zeros_like(p) if tensor is None else tensor)], kind + '/')
@@ -140,8 +169,9 @@ def save_train_checkpoint(directory: str, model: torch.nn.Module,
         yield 'mini_step', np.int64(train_step.mini_step)
 
     _write_npz(os.path.join(directory, OPT_STATE_FILE), opt_items())
-    with open(os.path.join(directory, TRAIN_META_FILE), 'w') as f:
-        json.dump({'step': train_step.micro_steps, **(extra or {})}, f, indent=2)
+    if is_main():
+        with open(os.path.join(directory, TRAIN_META_FILE), 'w') as f:
+            json.dump({'step': train_step.micro_steps, **(extra or {})}, f, indent=2)
 
 
 def load_train_checkpoint(directory: str, model: torch.nn.Module,
@@ -150,8 +180,15 @@ def load_train_checkpoint(directory: str, model: torch.nn.Module,
     ``optimizer`` (built over ``model.parameters()``) and ``train_step``;
     returns the ``train_state.json`` dict. A key set that differs from the
     one this model and optimizer would write raises instead of restoring
-    leaves by position."""
-    model.load_state_dict(_read_params(os.path.join(directory, PARAMS_FILE)), strict=True)
+    leaves by position. ``model`` may be wrapped or sharded; every rank
+    calls it and restores the same state, each tensor in its parameter's
+    layout."""
+    model = unwrap(model)
+    current = model.state_dict()
+    loaded = _read_params(os.path.join(directory, PARAMS_FILE))
+    model.load_state_dict({
+        k: like_parameter(current[k], v.to(current[k].device)) if is_sharded(current.get(k))
+        else v for k, v in loaded.items()}, strict=True)
     with np.load(os.path.join(directory, OPT_STATE_FILE), allow_pickle=False) as z:
         want = _opt_keys(model)
         missing = sorted(set(want) - set(z.files))
@@ -165,7 +202,8 @@ def load_train_checkpoint(directory: str, model: torch.nn.Module,
 
         def read(kind, flax, p):
             _, array = torch_leaf(flax, z[f'{kind}/{flax}'])
-            return torch.from_numpy(np.ascontiguousarray(array)).to(p.device, p.dtype)
+            return like_parameter(
+                p, torch.from_numpy(np.ascontiguousarray(array)).to(p.device, p.dtype))
 
         for name, p in model.named_parameters():
             flax = '/'.join(flax_path(name, p.dim()))

@@ -17,6 +17,13 @@ returns the metric dict.
 It runs on the card. The CPU is used only when asked: ``test_model(...,
 device='cpu')``, or ``WISTPU_DEVICE=cpu`` for ``python -m`` (the counterpart
 of ``JAX_PLATFORMS=cpu``); without a card the default raises.
+
+Run as W processes (``parallel/mesh.py::maybe_initialize_distributed``:
+``WISTPU_COORDINATOR`` / ``WISTPU_NUM_PROCESSES`` / ``WISTPU_PROCESS_ID``, or
+``torchrun`` with ``WISTPU_MULTIHOST=auto``), each process reads and scores
+its own rows of every batch, as the JAX entry point shards the split over
+``create_mesh(DATA_PARALLEL)``; rank 0 prints and returns the metrics, the
+others return ``{}``.
 """
 
 from __future__ import annotations
@@ -39,6 +46,10 @@ from weed_instance_segmentation_tpu_torch.engine.model_utils import (
     model_from_state_dict, resolve_model_path,
 )
 from weed_instance_segmentation_tpu_torch.engine.steps import make_forward_fn
+from weed_instance_segmentation_tpu_torch.parallel.mesh import (
+    create_mesh, is_main, maybe_initialize_distributed, process_count, process_index,
+    rank_device,
+)
 
 MODEL_ID = os.environ.get('WISTPU_MODEL_ID', 'mask2former_fine_tuned/latest/best_model/')
 
@@ -51,6 +62,9 @@ def load_test_model(model_path: str, device: str | torch.device = 'cuda'):
 
 
 def test_model(model_id: str, device: str | torch.device = 'cuda') -> dict | None:
+    maybe_initialize_distributed(device)
+    device = rank_device(device)
+    create_mesh(config.DATA_PARALLEL, device=device)  # raises where the degree and W differ
     model_path = resolve_model_path(model_id)
     if not os.path.exists(model_path):
         print(f'Model not found at {model_path}')
@@ -74,12 +88,16 @@ def test_model(model_id: str, device: str | torch.device = 'cuda') -> dict | Non
                   f'{test_dir} — run datasets.preprocess first')
             return None
         test_ds = PreprocessedDataset(test_dir)
-    loader = DataLoader(test_ds, batch_size=config.BATCH_SIZE, collate=collate_fn, shuffle=False)
+    world = process_count()
+    batch_size = -(-config.BATCH_SIZE // world) * world  # whole rows on every rank
+    loader = DataLoader(test_ds, batch_size=batch_size, collate=collate_fn, shuffle=False,
+                        process_index=process_index(), process_count=world)
 
     print(f'Loading model from {model_path}')
     model = load_test_model(model_path, device)
     result = test_with_metrics(make_forward_fn(model), loader, device=device)
-    print_metrics_evaluation(result, model_name='Best Model')
+    if is_main():
+        print_metrics_evaluation(result, model_name='Best Model')
     return result
 
 

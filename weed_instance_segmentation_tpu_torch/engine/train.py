@@ -3,7 +3,7 @@ checkpoint → test phase.
 
     python -m weed_instance_segmentation_tpu_torch.engine.train
 
-Port of ``weed_instance_segmentation_tpu/engine/train.py``, on one device:
+Port of ``weed_instance_segmentation_tpu/engine/train.py``:
 
 - unified label maps over ``config.DATASET_LIST``, the first label winning
   an id collision, with a warning;
@@ -25,11 +25,22 @@ Port of ``weed_instance_segmentation_tpu/engine/train.py``, on one device:
   metadata gathered so far returned.
 
 It runs on the card; ``WISTPU_DEVICE=cpu`` runs it on the CPU (the
-counterpart of ``JAX_PLATFORMS=cpu``). Not ported yet, and refused: data or
-model parallelism above 1 (``DATA_PARALLEL``, ``MODEL_PARALLEL``) and the
-device-side augmentation (``WISTPU_AUGMENT=1``). ``WISTPU_PROFILE=<dir>``
+counterpart of ``JAX_PLATFORMS=cpu``). ``WISTPU_AUGMENT=1`` turns on the
+device-side augmentation (``processing/augment.py``). ``WISTPU_PROFILE=<dir>``
 writes a ``torch.profiler`` trace of micro-steps 3-8 there and records the
 device's busy share over them as ``device_duty_profiled``.
+
+Run as W processes (``parallel/mesh.py``: ``WISTPU_COORDINATOR`` /
+``WISTPU_NUM_PROCESSES`` / ``WISTPU_PROCESS_ID``, or ``torchrun`` with
+``WISTPU_MULTIHOST=auto``), it trains on ``DATA_PARALLEL`` × ``MODEL_PARALLEL``
+ranks as the JAX trainer does on its mesh: rank 0 fills the cache while the
+others wait; ``BATCH_SIZE`` is rounded up to the data axis; each rank loads
+its own rows of every train and validation batch, and of the test split;
+the model is DDP-wrapped, or FSDP2-sharded over 'model'; the losses in the
+history are the global batches'; every rank joins the saves, which rank 0
+writes (and ``metadata.json``); the test phase shards the split over every
+rank and merges the metric entries on rank 0. All ranks use rank 0's start
+time for the run directory.
 """
 
 from __future__ import annotations
@@ -61,6 +72,11 @@ from weed_instance_segmentation_tpu_torch.engine.steps import (
     make_eval_step, make_forward_fn, make_optimizer, make_train_step, step_draws,
 )
 from weed_instance_segmentation_tpu_torch.engine.test import load_test_model
+from weed_instance_segmentation_tpu_torch.parallel.mesh import (
+    barrier, broadcast_pyobject, create_mesh, data_coordinate, is_main,
+    maybe_initialize_distributed, process_count, process_index, rank_device, unwrap, wrap_model,
+)
+from weed_instance_segmentation_tpu_torch.processing.augment import from_env as augment_from_env
 
 SPLITS = ('Train', 'Validate', 'Test')
 TRAIN_SEED = 42  # the JAX trainer's PRNGKey(42)
@@ -129,26 +145,15 @@ def ensure_preprocessed(dataset_name: str, processor, unified_label2id: dict) ->
     return paths
 
 
-def evaluate(eval_step, loader, device: torch.device) -> float:
+def evaluate(eval_step, loader, device: torch.device, mesh=None) -> float:
     """The validation loss averaged per batch; batch i draws from
-    (0, i), as the JAX trainer's ``evaluate`` does."""
-    losses = [eval_step(batch, step_draws(0, i, device))  # on the device until the end
+    (0, i), as the JAX trainer's ``evaluate`` does (this rank's rows of
+    the draws on ``mesh``)."""
+    shard = None if mesh is None else data_coordinate(mesh)
+    losses = [eval_step(batch, step_draws(0, i, device, shard))  # on the device until the end
               for i, batch in enumerate(device_batches(loader, device))]
     total = float(np.sum([loss.item() for loss in losses])) if losses else 0.0
     return total / max(len(losses), 1)
-
-
-def _refuse_unported() -> None:
-    """Raise for a setting no slice of the port runs yet."""
-    for name in ('DATA_PARALLEL', 'MODEL_PARALLEL'):
-        degree = getattr(config, name)
-        if degree is not None and degree > 1:
-            raise NotImplementedError(
-                f'{name}={degree}: the port trains on one device; data and model '
-                'parallelism are ROADMAP Queue 1 item 6')
-    if os.environ.get('WISTPU_AUGMENT', '0') == '1':
-        raise NotImplementedError('WISTPU_AUGMENT=1: the device-side augmentation is not '
-                                  'ported yet (ROADMAP Queue 1 item 7)')
 
 
 def _device_busy_fraction(trace_path: str) -> float | None:
@@ -192,23 +197,38 @@ def _stop_profile(prof, profile_dir: str, device: torch.device, metadata: dict) 
         print(f'\tProfiled device-busy fraction: {100 * busy:.1f}%')
 
 
+def _round_up(n: int, k: int) -> int:
+    return -(-n // k) * k
+
+
 def train(output_dir: str, metadata: dict, dataset_list: list,
           device: str | torch.device = 'cuda') -> dict:
-    _refuse_unported()
     device = require_device(device, 'train')
+    multiprocess = maybe_initialize_distributed(device)
+    device = rank_device(device)
+    main_rank = is_main()
+    mesh = create_mesh(config.DATA_PARALLEL, config.MODEL_PARALLEL, device)
     try:
         start_time = datetime.now()
-        print(f'Training on {device}')
+        print(f'Training on {device}' + (
+            f', mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} of {process_count()} '
+            f'processes (this is process {process_index()})' if multiprocess else ''))
 
         # 1. unified labels + processor
         unified_id2label, unified_label2id = get_unified_labels(dataset_list)
         processor = default_processor()
 
-        # 2. the cache, then datasets over it
+        # 2. the cache, then datasets over it; rank 0 fills the cache while
+        # the others wait (a shared filesystem, as on the JAX package's pods)
         train_datasets, val_datasets, test_datasets, processed_dirs = [], [], [], []
         for dataset_name in dataset_list:
             print(f'\n--- Preparing Dataset: {dataset_name} ---')
-            paths = ensure_preprocessed(dataset_name, processor, unified_label2id)
+            if main_rank:
+                paths = ensure_preprocessed(dataset_name, processor, unified_label2id)
+            barrier()
+            if not main_rank:
+                _, ds_config = get_dataset_and_config(dataset_name)
+                paths = {s: os.path.join(ds_config.PROCESSED_DIR, s) for s in SPLITS}
             # train/val feed only the loss: the three keys it reads; the test
             # split keeps the full sample (the metric rebuilds the ground
             # truth from original_map)
@@ -234,28 +254,45 @@ def train(output_dir: str, metadata: dict, dataset_list: list,
         metadata['preprocessing_time'] = elapsed
         start_time = end_time
 
-        batch_size = config.BATCH_SIZE
-        train_collate = make_train_collate(pad_hw, max_instances, batch_size)
-        train_loader = DataLoader(full_train, batch_size, train_collate, shuffle=True)
-        val_loader = DataLoader(full_val, batch_size, train_collate)
-        test_loader = DataLoader(full_test, batch_size, collate_fn)
+        # the batch fills the data axis (ranks of one model group share rows)
+        data_index, data_size = data_coordinate(mesh)
+        batch_size = _round_up(config.BATCH_SIZE, data_size)
+        if batch_size != config.BATCH_SIZE:
+            print(f'\tBATCH_SIZE {config.BATCH_SIZE} rounded to {batch_size} for '
+                  f'{data_size} data ranks')
+        shard = dict(process_index=data_index, process_count=data_size)
+        train_collate = make_train_collate(pad_hw, max_instances, batch_size // data_size)
+        train_loader = DataLoader(full_train, batch_size, train_collate, shuffle=True, **shard)
+        val_loader = DataLoader(full_val, batch_size, train_collate, **shard)
+        # the test phase runs an unsharded model on every rank: its rows
+        # split over all of them
+        world = process_count()
+        test_loader = DataLoader(full_test, _round_up(batch_size, world), collate_fn,
+                                 process_index=process_index(), process_count=world)
 
         # 3. model, optimizer, steps
         model, model_cfg = build_model_for_labels(unified_id2label, unified_label2id,
                                                   device=device)
         compute_dtype = getattr(torch, config.COMPUTE_DTYPE)
-        optimizer = make_optimizer(model.parameters(), config.LEARNING_RATE)
-        train_step = make_train_step(model, model_cfg, optimizer, config.GRADIENT_ACCUMULATION,
-                                     compute_dtype, seed=TRAIN_SEED)
-        eval_step = make_eval_step(model, model_cfg, compute_dtype)
-
-        best_val_loss = float('inf')
-        start_epoch = 0
-        metadata['training_history'] = []
+        resume_dir = None
         if config.RESUME:
             resume_dir = config.RESUME
             if not os.path.exists(os.path.join(resume_dir, ckpt.OPT_STATE_FILE)):
                 resume_dir = os.path.join(resume_dir, 'train_state')
+        model = wrap_model(model, mesh, device)
+        optimizer = make_optimizer(model.parameters(), config.LEARNING_RATE)
+        augment = augment_from_env()
+        if augment is not None:
+            print(f'Device-side augmentation enabled: {augment}')
+            metadata['augmentation'] = str(augment)
+        train_step = make_train_step(model, model_cfg, optimizer, config.GRADIENT_ACCUMULATION,
+                                     compute_dtype, seed=TRAIN_SEED, augment=augment, mesh=mesh)
+        eval_step = make_eval_step(model, model_cfg, compute_dtype, mesh=mesh)
+
+        best_val_loss = float('inf')
+        start_epoch = 0
+        metadata['training_history'] = []
+        if resume_dir is not None:
             resume_meta = ckpt.load_train_checkpoint(resume_dir, model, optimizer, train_step)
             start_epoch = int(resume_meta.get('epoch', 0))
             best_val_loss = float(resume_meta.get('best_val_loss', float('inf')))
@@ -287,7 +324,7 @@ def train(output_dir: str, metadata: dict, dataset_list: list,
                 input_wait += t_have_batch - t_mark
                 if profile_dir and global_step == PROFILE_STEPS[0]:
                     prof = _start_profile(device)
-                loss = train_step(batch)
+                loss = train_step(batch)  # the global batch's, on every rank
                 epoch_losses.append(loss)  # on the device; waited for every SYNC_EVERY
                 global_step += 1
                 if len(epoch_losses) % SYNC_EVERY == 0:
@@ -304,7 +341,7 @@ def train(output_dir: str, metadata: dict, dataset_list: list,
                               if epoch_losses else 0.0)
             print(f'\tEpoch {epoch + 1} Avg Loss: {avg_train_loss:.4f}')
 
-            avg_val_loss = evaluate(eval_step, val_loader, device)
+            avg_val_loss = evaluate(eval_step, val_loader, device, mesh)
             print(f'\tEpoch {epoch + 1} Val Loss: {avg_val_loss:.4f}')
             metadata['training_history'].append({
                 'epoch': epoch + 1,
@@ -312,10 +349,12 @@ def train(output_dir: str, metadata: dict, dataset_list: list,
                 'val_loss': avg_val_loss,
             })
 
+            # every rank joins the saves (their gathers are collectives);
+            # rank 0 writes
             if avg_val_loss < best_val_loss:
                 best_val_loss = avg_val_loss
-                ckpt.save_pretrained(os.path.join(output_dir, 'best_model'), model.state_dict(),
-                                     model_cfg, processor)
+                ckpt.save_pretrained(os.path.join(output_dir, 'best_model'),
+                                     unwrap(model).state_dict(), model_cfg, processor)
                 print(f'\tSaved new best model (Loss: {best_val_loss:.4f})')
 
             ckpt.save_train_checkpoint(
@@ -337,8 +376,8 @@ def train(output_dir: str, metadata: dict, dataset_list: list,
             metadata['input_duty_cycle'] = round(duty, 4)
             print(f'\tInput-pipeline duty cycle: {100 * duty:.1f}%')
 
-        ckpt.save_pretrained(os.path.join(output_dir, 'final_model'), model.state_dict(),
-                             model_cfg, processor)
+        ckpt.save_pretrained(os.path.join(output_dir, 'final_model'),
+                             unwrap(model).state_dict(), model_cfg, processor)
         ckpt.save_train_checkpoint(
             os.path.join(output_dir, 'train_state'), model, optimizer, train_step,
             extra={'epoch': config.EPOCHS, 'best_val_loss': best_val_loss,
@@ -347,17 +386,21 @@ def train(output_dir: str, metadata: dict, dataset_list: list,
         if device.type == 'cuda':
             torch.cuda.empty_cache()
 
-        # 4. test phase on the best model, in float32
+        # 4. test phase on the best model, in float32; best_model/ is whole
+        # on disk before any rank reads it
         start_time = datetime.now()
         best_model_path = os.path.join(output_dir, 'best_model')
+        barrier()
         print('\n--- Starting Test Phase (Best Model) ---')
         if os.path.exists(best_model_path):
             print(f'\tLoading best model from {best_model_path}')
             best = load_test_model(best_model_path, device)
-            test_results = test_with_metrics(make_forward_fn(best), test_loader, device=device)
+            test_results = test_with_metrics(make_forward_fn(best), test_loader, device=device,
+                                             pad_hw=pad_hw)
             del best
-            print_metrics_evaluation(test_results, model_name='Best Model')
-            metadata['test_metrics'] = prepare_metrics_for_json(test_results)
+            if main_rank:
+                print_metrics_evaluation(test_results, model_name='Best Model')
+                metadata['test_metrics'] = prepare_metrics_for_json(test_results)
         else:
             print('\tBest model not found, skipping test phase.')
 
@@ -365,6 +408,7 @@ def train(output_dir: str, metadata: dict, dataset_list: list,
         elapsed = format_duration(start_time, end_time)
         print(f'\tTest completed in {elapsed}')
         metadata['test_time'] = elapsed
+        barrier()
         return metadata
 
     except Exception as e:  # the metadata gathered so far
@@ -374,10 +418,14 @@ def train(output_dir: str, metadata: dict, dataset_list: list,
 
 
 def main() -> None:
-    global_start_time = datetime.now()
+    device = os.environ.get('WISTPU_DEVICE', 'cuda')
+    maybe_initialize_distributed(device)
+    # every rank names the run directory by rank 0's clock
+    global_start_time = broadcast_pyobject(datetime.now())
     run_output_dir = os.path.join(config.MODELS_OUTPUT_DIR, 'mask2former_fine_tuned',
                                   global_start_time.strftime('%Y-%m-%d_%H-%M-%S'))
-    os.makedirs(run_output_dir, exist_ok=True)
+    if is_main():
+        os.makedirs(run_output_dir, exist_ok=True)
     print(f'Training started at {global_start_time.strftime("%Y-%m-%d %H:%M:%S")}')
 
     metadata = {
@@ -391,25 +439,26 @@ def main() -> None:
         'max_input_dim': config.MAX_INPUT_DIM,
     }
     metadata_path = os.path.join(run_output_dir, 'metadata.json')
-    try:
-        with open(metadata_path, 'w') as f:
-            json.dump(metadata, f, indent=4)
-    except Exception as e:
-        print(f'\nError in saving metadata to "{metadata_path}":\n\t {e}')
+    if is_main():
+        try:
+            with open(metadata_path, 'w') as f:
+                json.dump(metadata, f, indent=4)
+        except Exception as e:
+            print(f'\nError in saving metadata to "{metadata_path}":\n\t {e}')
 
     updated = train(output_dir=run_output_dir, metadata=metadata,
-                    dataset_list=config.DATASET_LIST,
-                    device=os.environ.get('WISTPU_DEVICE', 'cuda'))
+                    dataset_list=config.DATASET_LIST, device=device)
     global_end_time = datetime.now()
     updated['end_time'] = global_end_time.strftime('%Y-%m-%d_%H-%M-%S')
     updated['total_time'] = format_duration(global_start_time, global_end_time)
     print(f"Training finished at {updated['end_time']}, "
           f"total duration: {updated['total_time']}")
-    try:
-        with open(metadata_path, 'w') as f:
-            json.dump(updated, f, indent=4)
-    except Exception as e:
-        print(f'\nError in updating metadata to "{metadata_path}":\n\t {e}')
+    if is_main():
+        try:
+            with open(metadata_path, 'w') as f:
+                json.dump(updated, f, indent=4)
+        except Exception as e:
+            print(f'\nError in updating metadata to "{metadata_path}":\n\t {e}')
 
 
 if __name__ == '__main__':

@@ -25,6 +25,13 @@ criterion runs in float32 on the model's outputs, outside autocast.
 
 Every random draw goes through one :class:`PointDraws` object, so a test can
 replay another stack's draws.
+
+Under data parallelism each rank computes the loss of its own rows. Two
+hooks, ``num_masks_reduce`` and ``class_weight_reduce``, replace the
+normalisers ``max(num_masks, 1)`` and ``max(Σw, 1e-8)`` with their global
+values divided by the rank count (``parallel/mesh.py::loss_reducers``), so
+that the ranks' mean loss, and the mean gradient DDP takes, are the
+global batch's, as in the JAX program that GSPMD partitions.
 """
 
 from __future__ import annotations
@@ -37,6 +44,9 @@ import torch.nn.functional as F
 
 from weed_instance_segmentation_tpu_torch.ops.grid_sample import sample_points
 from weed_instance_segmentation_tpu_torch.ops.lap import batched_linear_sum_assignment
+from weed_instance_segmentation_tpu_torch.parallel.mesh import rand_rows
+
+Reduce = Callable[[torch.Tensor], torch.Tensor]
 
 
 class PointDraws:
@@ -52,16 +62,22 @@ class PointDraws:
     - ``'redraw'``     (n, P − int(0.75 P), 2): the uniform remainder.
 
     The default draws them in call order from ``generator`` (on the
-    generator's device). ``generator`` also draws the backbone's drop-path
-    masks. A test overrides ``uniform`` to replay the JAX package's draws.
+    generator's device). ``generator`` also draws the augmentation's
+    factors and the backbone's drop-path masks, in that order, before
+    these. With ``shard`` = (index, count), a data rank's, each draw is
+    part ``index`` of one ``count`` times as large over the leading axis
+    (``parallel/mesh.py::rand_rows``): the rank's rows of what one process
+    draws for the global batch. A test overrides ``uniform`` to replay the
+    JAX package's draws.
     """
 
-    def __init__(self, generator: torch.Generator | None = None):
+    def __init__(self, generator: torch.Generator | None = None,
+                 shard: tuple[int, int] | None = None):
         self.generator = generator
+        self.shard = shard
 
     def uniform(self, kind: str, layer: int, shape: tuple, device: torch.device) -> torch.Tensor:
-        g = self.generator
-        return torch.rand(shape, generator=g, device=device if g is None else g.device).to(device)
+        return rand_rows(shape, self.generator, device, self.shard)
 
 
 def pad_targets(mask_labels: list, class_labels: list, max_instances: int,
@@ -169,22 +185,25 @@ def mask2former_loss(masks_queries_logits: torch.Tensor, class_queries_logits: t
                      train_num_points: int = 12544, oversample_ratio: float = 3.0,
                      importance_sample_ratio: float = 0.75, loss_key_suffix: str = '',
                      sample_valid: torch.Tensor | None = None,
-                     num_masks_reduce: Callable[[torch.Tensor], torch.Tensor] | None = None,
+                     num_masks_reduce: Reduce | None = None,
+                     class_weight_reduce: Reduce | None = None,
                      ) -> dict[str, torch.Tensor]:
     """One layer's unweighted loss dict {loss_mask, loss_dice,
     loss_cross_entropy} for the matcher's ``assigned`` (B, N_max) queries
     (:func:`hungarian_match`). ``sample_valid`` (B,) excludes batch-padding
-    repeats from every term. ``num_masks_reduce`` is where a data-parallel
-    run averages ``num_masks`` over its processes (HF:782-796)."""
+    repeats from every term. ``num_masks_reduce`` maps the local target
+    count to the mask and dice losses' normaliser (default max(count, 1))
+    and ``class_weight_reduce`` the local CE weight sum to the CE's
+    (default max(Σw, 1e-8)); a data-parallel run passes the global ones
+    over its rank count (``parallel/mesh.py::loss_reducers``)."""
     b, q, _ = class_queries_logits.shape
     n_max = target_masks.shape[1]
     if sample_valid is not None:
         target_valid = target_valid & (sample_valid > 0)[:, None]
 
     num_masks = target_valid.sum().float()
-    if num_masks_reduce is not None:
-        num_masks = num_masks_reduce(num_masks)
-    num_masks = num_masks.clamp(min=1.0)
+    num_masks = num_masks.clamp(min=1.0) if num_masks_reduce is None else num_masks_reduce(
+        num_masks)
 
     # ---- loss_labels (HF:547-580) ----
     batch_idx = torch.arange(b, device=assigned.device)[:, None].expand(b, n_max)
@@ -201,7 +220,10 @@ def mask2former_loss(masks_queries_logits: torch.Tensor, class_queries_logits: t
     class_w = weights[target_map]
     if sample_valid is not None:
         class_w = class_w * sample_valid[:, None]
-    loss_ce = -(class_w * picked).sum() / class_w.sum().clamp(min=1e-8)
+    weight_sum = class_w.sum()
+    weight_sum = (weight_sum.clamp(min=1e-8) if class_weight_reduce is None
+                  else class_weight_reduce(weight_sum))
+    loss_ce = -(class_w * picked).sum() / weight_sum
 
     # ---- loss_masks (HF:581-640) ----
     flat_pred = masks_queries_logits.reshape(b * q, *masks_queries_logits.shape[2:])
@@ -233,7 +255,8 @@ def total_loss(outputs: Any, target_masks: torch.Tensor, target_classes: torch.T
                oversample_ratio: float = 3.0, importance_sample_ratio: float = 0.75,
                class_weight: float = 2.0, mask_weight: float = 5.0, dice_weight: float = 5.0,
                use_auxiliary_loss: bool = True, sample_valid: torch.Tensor | None = None,
-               num_masks_reduce: Callable[[torch.Tensor], torch.Tensor] | None = None,
+               num_masks_reduce: Reduce | None = None,
+               class_weight_reduce: Reduce | None = None,
                ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Weighted total loss over the final layer and every aux layer of a
     ``Mask2FormerOutput`` → (scalar total, weighted per-key dict), in
@@ -265,7 +288,8 @@ def total_loss(outputs: Any, target_masks: torch.Tensor, target_classes: torch.T
                 num_labels=num_labels, no_object_weight=no_object_weight,
                 train_num_points=train_num_points, oversample_ratio=oversample_ratio,
                 importance_sample_ratio=importance_sample_ratio, loss_key_suffix=suffix,
-                sample_valid=sample_valid, num_masks_reduce=num_masks_reduce))
+                sample_valid=sample_valid, num_masks_reduce=num_masks_reduce,
+                class_weight_reduce=class_weight_reduce))
     weight_map = {'loss_cross_entropy': class_weight, 'loss_mask': mask_weight,
                   'loss_dice': dice_weight}
     weighted = {}

@@ -64,13 +64,15 @@ class Mask2Former(nn.Module):
         self.transformer_module = TransformerModule(config)
         self.class_predictor = nn.Linear(config.hidden_dim, config.num_labels + 1)
 
-    def forward(self, pixel_values: torch.Tensor,
-                generator: torch.Generator | None = None) -> Mask2FormerOutput:
+    def forward(self, pixel_values: torch.Tensor, generator: torch.Generator | None = None,
+                shard: tuple[int, int] | None = None) -> Mask2FormerOutput:
         """pixel_values: (B, 3, H, W) float — reference/HF layout.
-        ``generator`` draws the backbone's drop-path masks in training mode."""
+        ``generator`` draws the backbone's drop-path masks in training mode;
+        ``shard`` (a data rank's (index, count)) keeps the rank's part of
+        the global batch's draw."""
         dtype = self.class_predictor.weight.dtype
         x = pixel_values.permute(0, 2, 3, 1).to(dtype)  # NHWC
-        features = self.backbone(x, generator)
+        features = self.backbone(x, generator, shard)
         mask_features, multi_scale = self.pixel_decoder(features)
         intermediate, mask_logits = self.transformer_module(multi_scale, mask_features)
         class_logits = tuple(self.class_predictor(h) for h in intermediate)

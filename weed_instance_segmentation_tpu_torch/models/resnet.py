@@ -87,11 +87,11 @@ class ResNetBackbone(nn.Module):
                     cin, mid, mid * 4, 2 if blk == 0 and stage > 0 else 1, blk == 0))
                 cin = mid * 4
 
-    def forward(self, pixel_values: torch.Tensor,
-                generator: torch.Generator | None = None) -> list:
+    def forward(self, pixel_values: torch.Tensor, generator: torch.Generator | None = None,
+                shard: tuple[int, int] | None = None) -> list:
         """pixel_values: (B, H, W, C) NHWC. Returns [stage1..stage4] NHWC.
-        ``generator`` is taken for the backbone interface and unused: no
-        drop path."""
+        ``generator`` and ``shard`` are taken for the backbone interface and
+        unused: no drop path."""
         x = pixel_values.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         x = F.relu(self.stem_bn(self.stem_conv(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)

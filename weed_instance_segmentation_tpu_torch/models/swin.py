@@ -30,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from weed_instance_segmentation_tpu_torch.models.configuration import SwinConfig
 from weed_instance_segmentation_tpu_torch.ops.constants import device_constant
 from weed_instance_segmentation_tpu_torch.ops.window_attention import window_attention
+from weed_instance_segmentation_tpu_torch.parallel.mesh import rand_rows
 
 
 def relative_position_index(window_size: int) -> np.ndarray:
@@ -139,17 +140,19 @@ class SwinBlock(nn.Module):
         self.output_dense = nn.Linear(int(config.mlp_ratio * dim), dim)
 
     def drop_path_scales(self, batch: int, device: torch.device,
-                         generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
+                         generator: Optional[torch.Generator],
+                         shard: Optional[tuple[int, int]] = None) -> Optional[torch.Tensor]:
         """Stochastic depth (JAX ``SwinBlock._drop_path``): (2, batch) float32
         per-sample scales, keep/(1 − rate) or 0, for the attention and MLP
-        branches; None when the block keeps every path (eval, or rate 0)."""
+        branches; None when the block keeps every path (eval, or rate 0).
+        ``shard`` takes a data rank's columns of the global draw
+        (``parallel/mesh.py::rand_rows``)."""
         rate = self.drop_path_rate
         if not self.training or rate == 0.0:
             return None
         keep = 1.0 - rate
-        draw = torch.rand((2, batch), generator=generator,
-                          device=generator.device if generator is not None else device)
-        return (draw.to(device) < keep).float() / keep
+        draw = rand_rows((2, batch), generator, device, shard, dim=1)
+        return (draw < keep).float() / keep
 
     def forward(self, x: torch.Tensor, drop_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (B, H, W, C); ``drop_scales`` from :meth:`drop_path_scales`."""
@@ -243,9 +246,11 @@ class SwinBackbone(nn.Module):
                 self.add_module(f'downsample{stage}', PatchMerging(config, dim))
 
     def forward(self, pixel_values: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> list:
+                generator: Optional[torch.Generator] = None,
+                shard: Optional[tuple[int, int]] = None) -> list:
         """pixel_values: (B, H, W, 3) NHWC. Returns [stage1..stage4] NHWC.
-        ``generator`` draws the drop-path masks in training mode."""
+        ``generator`` draws the drop-path masks in training mode, the
+        columns ``shard`` names of a data-parallel run's global draw."""
         cfg = self.config
         ps = cfg.patch_size
         _, h, w, _ = pixel_values.shape
@@ -261,7 +266,7 @@ class SwinBackbone(nn.Module):
         for stage in range(num_stages):
             for blk in range(cfg.depths[stage]):
                 block = getattr(self, f'stage{stage}_block{blk}')
-                scales = block.drop_path_scales(x.shape[0], x.device, generator)
+                scales = block.drop_path_scales(x.shape[0], x.device, generator, shard)
                 if self.remat and torch.is_grad_enabled():
                     x = checkpoint(block, x, scales, use_reentrant=False)
                 else:
