@@ -1,0 +1,8 @@
+"""Device ms a request of work launched in the benchmark's range around the
+masked-attention decoder's forward."""
+
+from bench_torch.readers import device_ms_per_unit
+
+
+def read(run):
+    return device_ms_per_unit(run, 'bench.decoder')

@@ -1,0 +1,7 @@
+"""The window-attention kernel's share of its roofline in the traced requests."""
+
+from bench_torch.readers import WINDOW, op_roofline
+
+
+def read(run):
+    return op_roofline(run, WINDOW)
