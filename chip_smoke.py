@@ -147,6 +147,7 @@ from weed_instance_segmentation_tpu_torch.engine import checkpoint as ckpt
 from weed_instance_segmentation_tpu_torch.engine import metrics
 from weed_instance_segmentation_tpu_torch.engine import test as engine_test
 from weed_instance_segmentation_tpu_torch.engine import train as engine_train
+from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.engine.checkpoint import load_pretrained, save_pretrained
 from weed_instance_segmentation_tpu_torch.engine.export import (
     export_serving, load_serving, make_serving_fn,
@@ -166,6 +167,7 @@ from weed_instance_segmentation_tpu_torch.models.pixel_decoder import reference_
 from weed_instance_segmentation_tpu_torch.models.swin import shifted_window_attn_mask
 from weed_instance_segmentation_tpu_torch.ops import deformable_attention
 from weed_instance_segmentation_tpu_torch.ops import masked_attention as masked_attention_ops
+from weed_instance_segmentation_tpu_torch.ops import postprocess_kernel as postprocess_kernel_ops
 from weed_instance_segmentation_tpu_torch.ops import window_attention as window_attention_ops
 from weed_instance_segmentation_tpu_torch.ops.cuda_build import build_libraries, build_log
 from weed_instance_segmentation_tpu_torch.ops.masked_attention import (
@@ -287,18 +289,23 @@ def bound(bytes_moved: float, flops: float, dtype: torch.dtype) -> dict:
             'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
 
 
+# each kernel's launch counter (engine/trace.py), and its reading at the
+# last reset_counts()
+LAUNCH_COUNTERS = {'fused_upsample_stats': postprocess_kernel_ops.LAUNCHES,
+                   'window_attention_fwd': window_attention_ops.LAUNCHES,
+                   'window_attention_bwd': window_attention_ops.BACKWARD_LAUNCHES,
+                   'masked_attention_fwd': masked_attention_ops.LAUNCHES,
+                   'masked_attention_bwd': masked_attention_ops.BACKWARD_LAUNCHES}
+_counted = dict.fromkeys(LAUNCH_COUNTERS, 0)
+
+
 def reset_counts() -> None:
-    fused_upsample_stats.launches = 0
-    for op in (window_attention, masked_attention):
-        op.launches = op.backward_launches = 0
+    _counted.update({key: trace.counter(name) for key, name in LAUNCH_COUNTERS.items()})
 
 
 def counts() -> dict:
-    return {'fused_upsample_stats': fused_upsample_stats.launches,
-            'window_attention_fwd': window_attention.launches,
-            'window_attention_bwd': window_attention.backward_launches,
-            'masked_attention_fwd': masked_attention.launches,
-            'masked_attention_bwd': masked_attention.backward_launches}
+    """Each kernel's launches since the last :func:`reset_counts`."""
+    return {key: trace.counter(name) - _counted[key] for key, name in LAUNCH_COUNTERS.items()}
 
 
 def check_postprocess(logits: torch.Tensor, outputs: tuple) -> tuple[int, float]:
@@ -1259,10 +1266,10 @@ def _tiny_inference_parity(dev: torch.device) -> None:
     gpu_model = copy.deepcopy(cpu_model).to(dev)
     processor = Mask2FormerImageProcessor(size={'shortest_edge': 64, 'longest_edge': 96})
     image = np.random.default_rng(8).integers(0, 256, (64, 96, 3), dtype=np.uint8)
-    launches = fused_upsample_stats.launches
+    launches = trace.counter(postprocess_kernel_ops.LAUNCHES)
     _, want = run_inference_array(image, make_forward_fn(cpu_model), processor, 'cpu')
     _, got = run_inference_array(image, make_forward_fn(gpu_model), processor, dev)
-    check(fused_upsample_stats.launches == launches + 1, 'tiny-test inference did not launch '
+    check(trace.counter(postprocess_kernel_ops.LAUNCHES) == launches + 1, 'tiny-test inference did not launch '
                                                          'the post-process kernel')
     n, score_err, agree = _same_segments(got, want, 1e-4, 'tiny-test f32 inference')
     log(f'tiny-test f32 inference, card vs CPU: {n} segments, ids and labels equal, '
@@ -1894,11 +1901,11 @@ def phase_tiny_parity(dev: torch.device) -> None:
     out_hw, threshold = (64, 96), 0.23  # 2x upscale: the pre-process is exact
     raw = torch.from_numpy(
         np.random.default_rng(0).integers(0, 256, (2, 32, 48, 3), dtype=np.uint8))
-    launches = fused_upsample_stats.launches
+    launches = trace.counter(postprocess_kernel_ops.LAUNCHES)
     want = make_serving_fn(cpu_model, out_hw=out_hw, threshold=threshold)(raw)
     got = {k: v.cpu() for k, v in
            make_serving_fn(gpu_model, out_hw=out_hw, threshold=threshold)(raw.to(dev)).items()}
-    check(fused_upsample_stats.launches == launches + 1, 'tiny-test did not launch the kernel')
+    check(trace.counter(postprocess_kernel_ops.LAUNCHES) == launches + 1, 'tiny-test did not launch the kernel')
     check(int(want['valid'].sum()) >= 1, 'no segment kept at tiny-test')
     for key in ('valid', 'segment_ids', 'labels'):
         check(torch.equal(got[key], want[key]), f'tiny-test {key} differs')
@@ -1987,10 +1994,10 @@ _LOAD_ALONE = r"""
 import json, sys, time
 sys.modules['weed_instance_segmentation_tpu_torch.models'] = None  # import raises
 import torch
+from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.engine.export import load_serving
-from weed_instance_segmentation_tpu_torch.ops.masked_attention import masked_attention
-from weed_instance_segmentation_tpu_torch.ops.postprocess_kernel import fused_upsample_stats
-from weed_instance_segmentation_tpu_torch.ops.window_attention import window_attention
+from weed_instance_segmentation_tpu_torch.ops import masked_attention, postprocess_kernel
+from weed_instance_segmentation_tpu_torch.ops import window_attention
 out_dir, n, shape, results = sys.argv[1], int(sys.argv[2]), json.loads(sys.argv[3]), sys.argv[4]
 t0 = time.perf_counter()
 serve, manifest = load_serving(out_dir)
@@ -1999,14 +2006,15 @@ dev = torch.device('cuda', 0)
 g = torch.Generator(device=dev).manual_seed(0)
 requests = [torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
             for _ in range(n)]
-ops = {'window_attention_fwd': window_attention, 'masked_attention_fwd': masked_attention,
-       'fused_upsample_stats': fused_upsample_stats}
+ops = {'window_attention_fwd': window_attention.LAUNCHES,
+       'masked_attention_fwd': masked_attention.LAUNCHES,
+       'fused_upsample_stats': postprocess_kernel.LAUNCHES}
 launches, out = [], []
 for raw in requests:
-    before = {k: op.launches for k, op in ops.items()}
+    before = {k: trace.counter(name) for k, name in ops.items()}
     res = serve(raw)
     torch.cuda.synchronize()
-    launches.append({k: op.launches - before[k] for k, op in ops.items()})
+    launches.append({k: trace.counter(name) - before[k] for k, name in ops.items()})
     out.append({k: v.cpu() for k, v in res.items()})
 torch.save(out, results)
 blocked = sys.modules.get('weed_instance_segmentation_tpu_torch.models', 0) is None

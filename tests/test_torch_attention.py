@@ -21,16 +21,19 @@ import jax.numpy as jnp
 from weed_instance_segmentation_tpu.models import configuration as jax_configuration
 from weed_instance_segmentation_tpu.models.swin import WindowAttention as JaxWindowAttention
 
+from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.models.configuration import SwinConfig
 from weed_instance_segmentation_tpu_torch.models.convert import params_from_jax
 from weed_instance_segmentation_tpu_torch.models.swin import (
     WindowAttention, shifted_window_attn_mask, window_partition,
 )
 from weed_instance_segmentation_tpu_torch.ops.masked_attention import (
-    masked_attention, masked_attention_plain,
+    BACKWARD_LAUNCHES as MASKED_BACKWARD_LAUNCHES, LAUNCHES as MASKED_LAUNCHES, masked_attention,
+    masked_attention_plain,
 )
 from weed_instance_segmentation_tpu_torch.ops.window_attention import (
-    window_attention, window_attention_plain,
+    BACKWARD_LAUNCHES as WINDOW_BACKWARD_LAUNCHES, LAUNCHES as WINDOW_LAUNCHES, window_attention,
+    window_attention_plain,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -155,14 +158,14 @@ def test_cpu_tensors_run_the_plain_versions():
     q, k, v = (torch.from_numpy(rng.standard_normal((4, 2, 16, 16)).astype(np.float32))
                for _ in range(3))
     bias = torch.zeros((2, 16, 16))
-    launches = (window_attention.launches, window_attention.backward_launches,
-                masked_attention.launches, masked_attention.backward_launches)
+    launches = (trace.counter(WINDOW_LAUNCHES), trace.counter(WINDOW_BACKWARD_LAUNCHES),
+                trace.counter(MASKED_LAUNCHES), trace.counter(MASKED_BACKWARD_LAUNCHES))
     assert torch.equal(window_attention(q, k, v, bias), window_attention_plain(q, k, v, bias, None))
     mask = torch.from_numpy(rng.random((4, 1, 16, 16)) < 0.5)
     mask[..., 0] = False
     assert torch.equal(masked_attention(q, k, v, mask), masked_attention_plain(q, k, v, mask))
-    assert launches == (window_attention.launches, window_attention.backward_launches,
-                        masked_attention.launches, masked_attention.backward_launches)
+    assert launches == (trace.counter(WINDOW_LAUNCHES), trace.counter(WINDOW_BACKWARD_LAUNCHES),
+                        trace.counter(MASKED_LAUNCHES), trace.counter(MASKED_BACKWARD_LAUNCHES))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

@@ -38,6 +38,7 @@ from weed_instance_segmentation_tpu_torch.datasets.crop_weed import definitions 
 from weed_instance_segmentation_tpu_torch.datasets.loader import DataLoader
 from weed_instance_segmentation_tpu_torch.engine import metrics
 from weed_instance_segmentation_tpu_torch.engine import test as port_test
+from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.engine.model_utils import model_from_state_dict
 from weed_instance_segmentation_tpu_torch.engine.steps import make_forward_fn
 from weed_instance_segmentation_tpu_torch.evaluation.mean_ap import (
@@ -46,7 +47,7 @@ from weed_instance_segmentation_tpu_torch.evaluation.mean_ap import (
 from weed_instance_segmentation_tpu_torch.models.configuration import Mask2FormerConfig
 from weed_instance_segmentation_tpu_torch.models.convert import params_from_jax
 from weed_instance_segmentation_tpu_torch.ops.postprocess_kernel import (
-    fused_upsample_stats, upsample_plain,
+    LAUNCHES as POSTPROCESS_LAUNCHES, upsample_plain,
 )
 from weed_instance_segmentation_tpu_torch.ops.resize import nearest_indices
 from weed_instance_segmentation_tpu_torch.processing.postprocess import (
@@ -162,11 +163,11 @@ def test_post_process_instance_segmentation_equals_jax(monkeypatch, binary_maps)
         def __init__(self, cls, msk):
             self.class_queries_logits, self.masks_queries_logits = cls, msk
 
-    launches = fused_upsample_stats.launches
+    launches = trace.counter(POSTPROCESS_LAUNCHES)
     got = post_process_instance_segmentation(
         Out(torch.from_numpy(class_logits), torch.from_numpy(mask_logits)), threshold=0.3,
         target_sizes=TARGET_SIZES, return_binary_maps=binary_maps)
-    assert fused_upsample_stats.launches == launches  # CPU tensors: the plain version
+    assert trace.counter(POSTPROCESS_LAUNCHES) == launches  # CPU tensors: the plain version
     want = jax_postprocess.post_process_instance_segmentation(
         Out(jnp.asarray(class_logits), jnp.asarray(mask_logits)), threshold=0.3,
         target_sizes=TARGET_SIZES, return_binary_maps=binary_maps)

@@ -138,6 +138,13 @@ def test_exported_graph_calls_the_kernel_ops(exported):
     assert ops == want
 
 
+def test_exported_graph_holds_no_profiler_op(exported):
+    """The program's spans leave nothing in the saved graph: no profiler
+    range was open while it was traced."""
+    targets = [str(n.target) for n in exported['program'].graph.nodes]
+    assert targets and not [t for t in targets if 'profiler' in t or 'record_function' in t]
+
+
 def test_eager_serve_after_an_export_keeps_its_bits(exported):
     """An export traces the pipeline with fake tensors; the device-constant
     cache, emptied before it, must not keep them: the eager serving

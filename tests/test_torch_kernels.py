@@ -16,21 +16,24 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.evaluation.mean_ap import mask_iou_matrix
 from weed_instance_segmentation_tpu_torch.models.swin import shifted_window_attn_mask
 from weed_instance_segmentation_tpu_torch.ops.masked_attention import (
-    BLOCKS_PER_SM, KEY_TILE, ROW_TILE, key_chunks, masked_attention, masked_attention_plain,
+    BACKWARD_LAUNCHES as MASKED_BACKWARD_LAUNCHES, BLOCKS_PER_SM, KEY_TILE,
+    LAUNCHES as MASKED_LAUNCHES, ROW_TILE, key_chunks, masked_attention, masked_attention_plain,
 )
 from weed_instance_segmentation_tpu_torch.ops.postprocess_kernel import (
-    BAND_ROWS, SHARED_LIMIT, band_plan, bilinear_taps, fused_upsample_stats,
-    fused_upsample_stats_plain, shared_layout, tap_table, upsample_plain,
+    BAND_ROWS, LAUNCHES as POSTPROCESS_LAUNCHES, SHARED_LIMIT, band_plan, bilinear_taps,
+    fused_upsample_stats, fused_upsample_stats_plain, shared_layout, tap_table, upsample_plain,
 )
 from weed_instance_segmentation_tpu_torch.ops.resize import (
     bilinear_resize_matrix, nearest_indices,
 )
 from weed_instance_segmentation_tpu_torch.ops import window_attention as window_ops
 from weed_instance_segmentation_tpu_torch.ops.window_attention import (
-    BACKWARD_MAX_TOKENS, window_attention, window_attention_plain, window_runs,
+    BACKWARD_LAUNCHES as WINDOW_BACKWARD_LAUNCHES, BACKWARD_MAX_TOKENS,
+    LAUNCHES as WINDOW_LAUNCHES, window_attention, window_attention_plain, window_runs,
 )
 from weed_instance_segmentation_tpu_torch.processing.postprocess import (
     post_process_instance_segmentation,
@@ -80,10 +83,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 def test_cpu_tensor_runs_the_plain_version():
     logits = torch.from_numpy(
         np.random.default_rng(1).standard_normal((2, 3, 10, 12)).astype(np.float32))
-    launches = fused_upsample_stats.launches
+    launches = trace.counter(POSTPROCESS_LAUNCHES)
     got = fused_upsample_stats(logits, (24, 20))
     want = fused_upsample_stats_plain(logits, (24, 20))
-    assert fused_upsample_stats.launches == launches
+    assert trace.counter(POSTPROCESS_LAUNCHES) == launches
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert got[0].shape == got[1].shape == (2, 3) and got[2].shape == (2, 3, 24, 20)
@@ -217,10 +220,10 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, score_hw):
     of zero (a sign change from float32 summation order)."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     logits = torch.randn(shape, generator=g, device=cuda_device) * 2
-    launches = fused_upsample_stats.launches
+    launches = trace.counter(POSTPROCESS_LAUNCHES)
     sig, cnt, bins = fused_upsample_stats(logits, score_hw)
     torch.cuda.synchronize()
-    assert fused_upsample_stats.launches == launches + 1
+    assert trace.counter(POSTPROCESS_LAUNCHES) == launches + 1
     up = upsample_plain(logits, score_hw)
     p_sig, p_cnt, p_bins = fused_upsample_stats_plain(logits, score_hw)
     flips = bins != p_bins
@@ -247,11 +250,11 @@ def test_eval_post_process_of_one_image_on_card(cuda_device):
         def __init__(self, cls, msk):
             self.class_queries_logits, self.masks_queries_logits = cls, msk
 
-    launches = fused_upsample_stats.launches
+    launches = trace.counter(POSTPROCESS_LAUNCHES)
     got = post_process_instance_segmentation(
         Out(class_logits.to(cuda_device), mask_logits.to(cuda_device)), threshold=0.5,
         target_sizes=[(300, 500)])[0]
-    assert fused_upsample_stats.launches == launches + 1
+    assert trace.counter(POSTPROCESS_LAUNCHES) == launches + 1
     want = post_process_instance_segmentation(Out(class_logits, mask_logits), threshold=0.5,
                                               target_sizes=[(300, 500)])[0]
     assert want['segments_info'], 'no segment kept'
@@ -377,10 +380,10 @@ def test_window_attention_kernels_match_plain(cuda_device, case, shifted, dtype,
     same bf16 values); each call launches the forward and backward kernel
     once."""
     q, k, v, bias, mask = _window_inputs(case, shifted, cuda_device)
-    launches = window_attention.launches, window_attention.backward_launches
+    launches = trace.counter(WINDOW_LAUNCHES), trace.counter(WINDOW_BACKWARD_LAUNCHES)
     errs = _kernel_vs_plain(window_attention, window_attention_plain, [q, k, v, bias], [mask],
                             (0, 1, 2, 3), dtype, 2)
-    assert (window_attention.launches, window_attention.backward_launches) == \
+    assert (trace.counter(WINDOW_LAUNCHES), trace.counter(WINDOW_BACKWARD_LAUNCHES)) == \
         (launches[0] + 1, launches[1] + 1)
     assert max(errs.values()) <= tol, errs
 
@@ -394,12 +397,12 @@ def test_window_attention_forward_alone_matches_plain(cuda_device, case, shifted
     f32 on the same bf16 values), one launch."""
     q, k, v, bias, mask = _window_inputs(case, shifted, cuda_device)
     q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
-    launches = window_attention.launches
+    launches = trace.counter(WINDOW_LAUNCHES)
     with torch.no_grad():
         out = window_attention(q, k, v, bias, mask)
         want = window_attention_plain(q.float(), k.float(), v.float(), bias, mask)
     torch.cuda.synchronize()
-    assert window_attention.launches == launches + 1
+    assert trace.counter(WINDOW_LAUNCHES) == launches + 1
     assert ((out.float() - want).abs().max() / want.abs().max()).item() <= 2e-2
 
 
@@ -483,14 +486,14 @@ def test_window_attention_wrapper_raises_on_what_the_backward_does_not_take(cuda
     t = BACKWARD_MAX_TOKENS + 25
     q = torch.zeros((1, 1, t, 16), device=cuda_device)
     bias = torch.zeros((1, t, t), device=cuda_device, requires_grad=True)
-    launches = window_attention.launches
+    launches = trace.counter(WINDOW_LAUNCHES)
     with pytest.raises(ValueError, match=f'at most {BACKWARD_MAX_TOKENS} tokens'):
         window_attention(q, q, q, bias)
-    assert window_attention.launches == launches
+    assert trace.counter(WINDOW_LAUNCHES) == launches
     with torch.no_grad():
         out = window_attention(q, q, q, bias)
     torch.cuda.synchronize()
-    assert out.shape == q.shape and window_attention.launches == launches + 1
+    assert out.shape == q.shape and trace.counter(WINDOW_LAUNCHES) == launches + 1
 
 
 MASKED_CASES = {'small': (2, 2, 10, 40, 16), 'small-d64': (1, 3, 7, 100, 64),
@@ -527,10 +530,10 @@ def test_masked_attention_kernels_match_plain(cuda_device, case, dtype, tol):
     """O, dQ, dK and dV with 70 % of the scores masked (and the all-masked-row
     escape) within ``tol`` of the plain version's largest magnitude."""
     q, k, v, mask = _masked_inputs(case, cuda_device)
-    launches = masked_attention.launches, masked_attention.backward_launches
+    launches = trace.counter(MASKED_LAUNCHES), trace.counter(MASKED_BACKWARD_LAUNCHES)
     errs = _kernel_vs_plain(masked_attention, masked_attention_plain, [q, k, v], [mask],
                             (0, 1, 2), dtype, 4)
-    assert (masked_attention.launches, masked_attention.backward_launches) == \
+    assert (trace.counter(MASKED_LAUNCHES), trace.counter(MASKED_BACKWARD_LAUNCHES)) == \
         (launches[0] + 1, launches[1] + 1)
     assert max(errs.values()) <= tol, errs
 
@@ -883,11 +886,11 @@ def test_registered_ops_give_the_wrappers_bits_on_card(cuda_device):
     with torch.no_grad():
         program = torch.export.export(Calls(), args, strict=False)
         want = Calls()(*args)
-        launches = (masked_attention.launches, window_attention.launches,
-                    fused_upsample_stats.launches)
+        launches = (trace.counter(MASKED_LAUNCHES), trace.counter(WINDOW_LAUNCHES),
+                    trace.counter(POSTPROCESS_LAUNCHES))
         got = program.module()(*args)
-    assert (masked_attention.launches, window_attention.launches,
-            fused_upsample_stats.launches) == tuple(n + 1 for n in launches)
+    assert (trace.counter(MASKED_LAUNCHES), trace.counter(WINDOW_LAUNCHES),
+            trace.counter(POSTPROCESS_LAUNCHES)) == tuple(n + 1 for n in launches)
     ops = {str(n.target) for n in program.graph.nodes if str(n.target).startswith('wistpu.')}
     assert ops == {'wistpu.masked_attention_fwd.default', 'wistpu.window_attention_fwd.default',
                    'wistpu.fused_upsample_stats.default'}

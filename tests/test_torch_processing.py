@@ -18,8 +18,9 @@ from weed_instance_segmentation_tpu.processing.postprocess import (
     post_process_instance_arrays as jax_post_process,
 )
 
+from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.ops.postprocess_kernel import (
-    fused_upsample_stats, fused_upsample_stats_plain,
+    LAUNCHES as POSTPROCESS_LAUNCHES, fused_upsample_stats, fused_upsample_stats_plain,
 )
 from weed_instance_segmentation_tpu_torch.processing.fused import fused_preprocess
 from weed_instance_segmentation_tpu_torch.processing.postprocess import (
@@ -104,10 +105,10 @@ def test_post_process_matches_jax(monkeypatch, target_size, ties):
         class_logits = _with_ties(class_logits)
     want = jax_post_process(jnp.asarray(class_logits), jnp.asarray(mask_logits),
                             target_size, 0.3)
-    launches = fused_upsample_stats.launches
+    launches = trace.counter(POSTPROCESS_LAUNCHES)
     got = post_process_instance_arrays(torch.from_numpy(class_logits),
                                        torch.from_numpy(mask_logits), target_size, 0.3)
-    assert fused_upsample_stats.launches == launches  # CPU tensors: no kernel launch
+    assert trace.counter(POSTPROCESS_LAUNCHES) == launches  # CPU tensors: no kernel launch
     assert got.valid.any()
     for key in ('valid', 'segment_ids', 'labels', 'segmentation', 'masks'):
         np.testing.assert_array_equal(getattr(got, key).numpy(),

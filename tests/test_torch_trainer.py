@@ -323,22 +323,21 @@ def test_build_model_for_labels_from_a_checkpoint(tmp_path, monkeypatch, labels)
     assert default_processor().to_dict() == processor.to_dict()
 
 
-def test_profile_window(resumed_runs, tmp_path):
+def test_profile_window(resumed_runs):
     """``WISTPU_PROFILE`` traced micro-steps 3-8 of the uninterrupted run
-    (10 micro-steps over 2 epochs) into the directory; on the CPU the trace
-    holds no device work, so no ``device_duty_profiled`` is recorded. The
-    busy share merges overlapping device intervals over the trace's span."""
+    (10 micro-steps over 2 epochs) into the directory, and wrote the
+    program's spans beside the trace, on its time base: each traced
+    micro-step's span lies on its range. On the CPU the trace holds no
+    device work, so no ``device_duty_profiled`` is recorded."""
     root, runs = resumed_runs
     with open(root / 'profile' / 'trace.json') as f:
-        names = {e.get('name') for e in json.load(f)['traceEvents']}
-    assert {'forward', 'backward', 'optimizer'} <= names
+        events = [e for e in json.load(f)['traceEvents'] if e.get('ph') == 'X']
+    assert {'train.micro_step', 'forward', 'criterion', 'lap.wait', 'backward',
+            'optimizer'} <= {e['name'] for e in events}
+    with open(root / 'profile' / 'spans.json') as f:
+        spans = json.load(f)['traceEvents']
+    ranges = sorted(e['ts'] for e in events if e['name'] == 'train.micro_step')
+    starts = [e['ts'] for e in spans if e['name'] == 'train.micro_step']
+    assert len(ranges) == 5
+    assert all(min(abs(r - s) for s in starts) < 100 for r in ranges)  # µs
     assert 'device_duty_profiled' not in runs['whole']
-
-    trace = {'traceEvents': [
-        {'ph': 'X', 'cat': 'cpu_op', 'name': 'a', 'ts': 0, 'dur': 100},
-        {'ph': 'X', 'cat': 'kernel', 'name': 'k', 'ts': 10, 'dur': 20},
-        {'ph': 'X', 'cat': 'kernel', 'name': 'k', 'ts': 20, 'dur': 20},
-        {'ph': 'X', 'cat': 'gpu_memcpy', 'name': 'c', 'ts': 70, 'dur': 10}]}
-    path = tmp_path / 'synthetic.json'
-    path.write_text(json.dumps(trace))
-    assert train._device_busy_fraction(str(path)) == pytest.approx(0.4)

@@ -6,6 +6,11 @@ seed-deterministic order, and under data parallelism each process loads
 only its own rows of every global batch. :func:`device_batches` moves each
 numpy batch to the device, through pinned host memory with non-blocking
 copies when the device is a GPU.
+
+Its spans (``engine/trace.py``): ``loader.collate``, a batch loaded and
+collated (on the prefetch thread); ``loader.wait``, the consumer's wait
+for a prefetched batch; ``loader.to_device``, a batch's copy to the
+device.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ from typing import Callable, Iterable, Iterator
 
 import numpy as np
 import torch
+
+from weed_instance_segmentation_tpu_torch.engine import trace
 
 
 class DataLoader:
@@ -61,14 +68,15 @@ class DataLoader:
         return [order[i:i + self.batch_size] for i in range(0, len(order), self.batch_size)]
 
     def _materialize(self, idxs) -> dict:
-        if self.process_count <= 1:
-            return self.collate([self.dataset[int(i)] for i in idxs])
-        local_bs = self.batch_size // self.process_count
-        padded = np.concatenate([idxs, np.repeat(idxs[-1], self.batch_size - len(idxs))])
-        lo = self.process_index * local_bs
-        batch = self.collate([self.dataset[int(i)] for i in padded[lo:lo + local_bs]])
-        batch['num_valid'] = int(np.clip(len(idxs) - lo, 0, local_bs))
-        return batch
+        with trace.span('loader.collate'):
+            if self.process_count <= 1:
+                return self.collate([self.dataset[int(i)] for i in idxs])
+            local_bs = self.batch_size // self.process_count
+            padded = np.concatenate([idxs, np.repeat(idxs[-1], self.batch_size - len(idxs))])
+            lo = self.process_index * local_bs
+            batch = self.collate([self.dataset[int(i)] for i in padded[lo:lo + local_bs]])
+            batch['num_valid'] = int(np.clip(len(idxs) - lo, 0, local_bs))
+            return batch
 
     def __iter__(self) -> Iterator[dict]:
         batches = self._index_batches()
@@ -110,7 +118,8 @@ def prefetch_iterator(it: Iterable, depth: int = 2) -> Iterator:
     thread.start()
     try:
         while True:
-            item = q.get()
+            with trace.span('loader.wait'):
+                item = q.get()
             if item is end:
                 break
             if isinstance(item, Exception):
@@ -126,11 +135,12 @@ def to_device(batch: dict, device: torch.device) -> dict:
     launched after this reads the copied data)."""
     device = torch.device(device)
     out = {}
-    for key, value in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(value))
-        if device.type == 'cuda':
-            t = t.pin_memory().to(device, non_blocking=True)
-        out[key] = t
+    with trace.span('loader.to_device'):
+        for key, value in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(value))
+            if device.type == 'cuda':
+                t = t.pin_memory().to(device, non_blocking=True)
+            out[key] = t
     return out
 
 

@@ -20,6 +20,10 @@ program launches the same kernels as the live function, and their launch
 counters count them. Shapes are static (one artifact per batch and
 resolution), and one artifact serves the device it was exported on.
 
+Each call of a serving function is the span ``serve.request``
+(``engine/trace.py``; its id the call's index); inside it the live
+function's ``serve.preprocess``, the model's spans and ``serve.postprocess``.
+
 Artifact layout under ``<out_dir>/``:
     serving.pt2    — ``torch.export.save`` of the program, weights included
     manifest.json  — shapes, dtypes, arch, threshold, platform, torch version
@@ -40,12 +44,14 @@ CLI (env-driven like every entry point)::
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 from typing import Callable
 
 import torch
 
+from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.processing.fused import fused_preprocess
 from weed_instance_segmentation_tpu_torch.processing.postprocess import (
     post_process_instance_arrays,
@@ -76,12 +82,14 @@ class ServingModule(torch.nn.Module):
         self.emit_masks = emit_masks
 
     def forward(self, raw: torch.Tensor) -> dict:
-        pixel_values, _ = fused_preprocess(raw, self.out_hw, self.out_hw)
+        with trace.span('serve.preprocess'):
+            pixel_values, _ = fused_preprocess(raw, self.out_hw, self.out_hw)
         out = self.model(pixel_values)
-        res = post_process_instance_arrays(
-            out.class_queries_logits.float(), out.masks_queries_logits.float(),
-            self.target_size, self.threshold, with_masks=self.emit_masks,
-        )._asdict()
+        with trace.span('serve.postprocess'):
+            res = post_process_instance_arrays(
+                out.class_queries_logits.float(), out.masks_queries_logits.float(),
+                self.target_size, self.threshold, with_masks=self.emit_masks,
+            )._asdict()
         if not self.emit_masks:
             res.pop('masks')
         return res
@@ -102,18 +110,20 @@ def make_serving_fn(model: torch.nn.Module, *, out_hw: tuple[int, int],
     one = ServingModule(model, out_hw=out_hw, target_size=target_size, threshold=threshold,
                         emit_masks=emit_masks)
     device = next(model.parameters()).device
+    requests = itertools.count()
 
     @torch.inference_mode()
     def serve(raw: torch.Tensor) -> dict:
         if raw.device != device:
             raise ValueError(f'images are on {raw.device}, the model on {device}')
-        b = raw.shape[0]
-        if not micro_batch or b <= micro_batch:
-            return one(raw)
-        if b % micro_batch:
-            raise ValueError(f'serving batch {b} not divisible by micro_batch {micro_batch}')
-        parts = [one(chunk) for chunk in raw.split(micro_batch)]
-        return {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
+        with trace.span('serve.request', id=next(requests)):
+            b = raw.shape[0]
+            if not micro_batch or b <= micro_batch:
+                return one(raw)
+            if b % micro_batch:
+                raise ValueError(f'serving batch {b} not divisible by micro_batch {micro_batch}')
+            parts = [one(chunk) for chunk in raw.split(micro_batch)]
+            return {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
 
     return serve
 
@@ -189,10 +199,12 @@ def load_serving(out_dir: str) -> tuple[Callable, dict]:
         raise RuntimeError(f'{out_dir} was exported for {manifest["platforms"]}; no CUDA '
                            'device is available')
     program = torch.export.load(os.path.join(out_dir, ARTIFACT_NAME)).module()
+    requests = itertools.count()
 
     @torch.inference_mode()
     def serve(raw: torch.Tensor) -> dict:
-        return program(raw)
+        with trace.span('serve.request', id=next(requests)):
+            return program(raw)
 
     serve.program = program
     return serve, manifest

@@ -24,16 +24,16 @@ from typing import Callable
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.evaluation.mean_ap import MeanAveragePrecision
 from weed_instance_segmentation_tpu_torch.parallel.mesh import gather_pyobjects, is_main
 from weed_instance_segmentation_tpu_torch.processing.postprocess import (
     post_process_instance_segmentation,
 )
 
-# the ranges of ``test_with_metrics``, in the order a batch runs them; the
-# metric update holds ``evaluation/mean_ap.py``'s 'IoU product' range
+# the spans of ``test_with_metrics``, in the order a batch runs them; the
+# metric update holds ``evaluation/mean_ap.py``'s 'IoU product' span
 EVAL_RANGES = ('ground truth', 'forward', 'post-process', 'host reformat', 'metric update',
                'IoU product', 'metric compute')
 
@@ -91,7 +91,7 @@ def test_with_metrics(forward_fn: Callable, data_loader, threshold: float = 0.5,
     is the inference forward (``engine/steps.py::make_forward_fn``) of a
     model on ``device``. A short last batch runs at its own size (the JAX
     package pads it to keep one compiled shape; the port compiles none).
-    Each stage is a ``record_function`` range (``EVAL_RANGES``), so a
+    Each stage is a span (``EVAL_RANGES``, ``engine/trace.py``), so a
     profiler trace splits the time by stage.
 
     A loader sharded over several processes makes this a collective of
@@ -113,30 +113,30 @@ def test_with_metrics(forward_fn: Callable, data_loader, threshold: float = 0.5,
         entries_per_batch.append(n_valid)
         if n_valid == 0:  # a rank whose rows all pad the last global batch
             continue
-        with record_function('ground truth'):
+        with trace.span('ground truth'):
             targets = targets_from_original_maps(batch['original_maps'][:n_valid],
                                                  batch['id_mappings'][:n_valid])
-        with record_function('forward'):
+        with trace.span('forward'):
             pixels = np.asarray(batch['pixel_values'])[:n_valid]
             if multiprocess and pad_hw is not None and pixels.shape[2:] != tuple(pad_hw):
                 padded = np.zeros((*pixels.shape[:2], *pad_hw), pixels.dtype)
                 padded[:, :, :pixels.shape[2], :pixels.shape[3]] = pixels
                 pixels = padded
             outputs = forward_fn(torch.from_numpy(pixels).to(device))
-        with record_function('post-process'):
+        with trace.span('post-process'):
             predictions = post_process_instance_segmentation(
                 outputs, threshold=threshold, mask_threshold=0.5,
                 target_sizes=batch['target_sizes'][:n_valid],
             )
-        with record_function('host reformat'):
+        with trace.span('host reformat'):
             formatted = predictions_from_postprocess(predictions)
-        with record_function('metric update'):
+        with trace.span('metric update'):
             map_metric.update(formatted, targets)
     if multiprocess:
         map_metric = _merge_in_image_order(map_metric, entries_per_batch, device)
         if map_metric is None:
             return {}
-    with record_function('metric compute'):
+    with trace.span('metric compute'):
         return map_metric.compute()
 
 

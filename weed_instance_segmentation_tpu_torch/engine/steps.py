@@ -30,9 +30,10 @@ Port of ``weed_instance_segmentation_tpu/engine/steps.py``:
 - The forward runs under ``torch.autocast`` in ``compute_dtype`` when that is
   not float32 (float32 parameters, the master copy); the criterion runs in
   float32; the MSDA core keeps float32 coordinates (models/pixel_decoder.py).
-- A train step's four parts run in ``torch.profiler.record_function`` ranges
-  named ``forward``, ``criterion``, ``backward`` and ``optimizer``, so a
-  profiler trace of real steps splits their time.
+- A train step is the span ``train.micro_step`` (``engine/trace.py``; its
+  id the micro-step's index), and its four parts the spans ``forward``,
+  ``criterion``, ``backward`` and ``optimizer`` inside it, which a profiler
+  trace of real steps also shows as ranges.
 
 ``make_forward_fn`` is the inference forward of the evaluation path.
 
@@ -47,8 +48,8 @@ from typing import Callable
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.losses.criterion import PointDraws, total_loss
 from weed_instance_segmentation_tpu_torch.models.configuration import Mask2FormerConfig
 from weed_instance_segmentation_tpu_torch.parallel.mesh import (
@@ -77,13 +78,13 @@ def make_loss_fn(model: torch.nn.Module, cfg: Mask2FormerConfig,
     reducers = loss_reducers(mesh)
 
     def loss_fn(batch: dict, draws: PointDraws):
-        with record_function('forward'):
+        with trace.span('forward'):
             if augment is not None:
                 batch = augment_batch(batch, augment, draws.generator, draws.shard)
             pixels = batch['pixel_values']
             with _autocast(pixels.device, compute_dtype):
                 outputs = model(pixels, draws.generator, draws.shard)
-        with record_function('criterion'):
+        with trace.span('criterion'):
             return total_loss(
                 outputs, batch['mask_labels'].float(), batch['class_labels'],
                 batch['instance_valid'] > 0, draws,
@@ -140,24 +141,25 @@ class TrainStep:
         self.mini_step = 0
 
     def __call__(self, batch: dict, draws: PointDraws | None = None) -> torch.Tensor:
-        if self.mini_step == 0:
-            self.optimizer.zero_grad(set_to_none=True)
-        if draws is None:
-            draws = step_draws(self.seed, self.micro_steps, self.params[0].device, self.shard)
-        with no_grad_sync(self.model, sync=self.mini_step + 1 == self.gradient_accumulation):
-            loss, _ = self.loss_fn(batch, draws)
-            with record_function('backward'):
-                loss.backward()
-        self.micro_steps += 1
-        self.mini_step = (self.mini_step + 1) % self.gradient_accumulation
-        if self.mini_step == 0:
-            with record_function('optimizer'):
-                if self.gradient_accumulation > 1:
-                    for p in self.params:
-                        if p.grad is not None:
-                            p.grad.div_(self.gradient_accumulation)
-                self.optimizer.step()
-        return rank_mean(loss.detach())
+        with trace.span('train.micro_step', id=self.micro_steps):
+            if self.mini_step == 0:
+                self.optimizer.zero_grad(set_to_none=True)
+            if draws is None:
+                draws = step_draws(self.seed, self.micro_steps, self.params[0].device, self.shard)
+            with no_grad_sync(self.model, sync=self.mini_step + 1 == self.gradient_accumulation):
+                loss, _ = self.loss_fn(batch, draws)
+                with trace.span('backward'):
+                    loss.backward()
+            self.micro_steps += 1
+            self.mini_step = (self.mini_step + 1) % self.gradient_accumulation
+            if self.mini_step == 0:
+                with trace.span('optimizer'):
+                    if self.gradient_accumulation > 1:
+                        for p in self.params:
+                            if p.grad is not None:
+                                p.grad.div_(self.gradient_accumulation)
+                    self.optimizer.step()
+            return rank_mean(loss.detach())
 
 
 def make_train_step(model: torch.nn.Module, cfg: Mask2FormerConfig,

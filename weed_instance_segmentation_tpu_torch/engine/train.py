@@ -27,8 +27,12 @@ Port of ``weed_instance_segmentation_tpu/engine/train.py``:
 It runs on the card; ``WISTPU_DEVICE=cpu`` runs it on the CPU (the
 counterpart of ``JAX_PLATFORMS=cpu``). ``WISTPU_AUGMENT=1`` turns on the
 device-side augmentation (``processing/augment.py``). ``WISTPU_PROFILE=<dir>``
-writes a ``torch.profiler`` trace of micro-steps 3-8 there and records the
-device's busy share over them as ``device_duty_profiled``.
+writes a ``torch.profiler`` trace of micro-steps 3-8 there (``trace.json``),
+the program's spans on its time base beside it (``spans.json``,
+``engine/trace.py``), and records the device's busy share over them as
+``device_duty_profiled``. ``input_duty_cycle`` is the share of the epoch
+loops' time (the spans ``train.loop``) spent outside the input path's spans
+(``loader.wait`` and ``loader.to_device``).
 
 Run as W processes (``parallel/mesh.py``: ``WISTPU_COORDINATOR`` /
 ``WISTPU_NUM_PROCESSES`` / ``WISTPU_PROCESS_ID``, or ``torchrun`` with
@@ -47,7 +51,6 @@ from __future__ import annotations
 
 import json
 import os
-import time
 import traceback
 from datetime import datetime
 
@@ -62,6 +65,7 @@ from weed_instance_segmentation_tpu_torch.datasets.dataset_utils import (
 from weed_instance_segmentation_tpu_torch.datasets.factory import get_dataset_and_config
 from weed_instance_segmentation_tpu_torch.datasets.loader import DataLoader, device_batches
 from weed_instance_segmentation_tpu_torch.engine import checkpoint as ckpt
+from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.engine.metrics import (
     prepare_metrics_for_json, print_metrics_evaluation, test_with_metrics,
 )
@@ -156,45 +160,9 @@ def evaluate(eval_step, loader, device: torch.device, mesh=None) -> float:
     return total / max(len(losses), 1)
 
 
-def _device_busy_fraction(trace_path: str) -> float | None:
-    """The share of the trace's span in which the device ran a kernel, copy
-    or fill (their intervals merged); None if it holds no device work."""
-    with open(trace_path) as f:
-        events = [e for e in json.load(f)['traceEvents'] if e.get('ph') == 'X']
-    device = sorted((e['ts'], e['ts'] + e['dur']) for e in events
-                    if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset'))
-    if not device:
-        return None
-    busy, end = 0.0, -float('inf')
-    for a, b in device:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    span = max(e['ts'] + e['dur'] for e in events) - min(e['ts'] for e in events)
-    return busy / span if span > 0 else None
-
-
-def _start_profile(device: torch.device):
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == 'cuda':
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=activities)
-    prof.start()
-    return prof
-
-
-def _stop_profile(prof, profile_dir: str, device: torch.device, metadata: dict) -> None:
-    if device.type == 'cuda':
-        torch.cuda.synchronize(device)
-    prof.stop()
-    os.makedirs(profile_dir, exist_ok=True)
-    path = os.path.join(profile_dir, 'trace.json')
-    prof.export_chrome_trace(path)
-    print(f'\tProfiler trace written to {path}')
-    busy = _device_busy_fraction(path)
-    if busy is not None:
-        metadata['device_duty_profiled'] = round(busy, 4)
-        print(f'\tProfiled device-busy fraction: {100 * busy:.1f}%')
+def _spent(before: dict, after: dict, name: str) -> float:
+    """Seconds spent in the spans ``name`` between two :func:`trace.totals`."""
+    return after.get(name, (0, 0.0))[1] - before.get(name, (0, 0.0))[1]
 
 
 def _round_up(n: int, k: int) -> int:
@@ -313,30 +281,33 @@ def train(output_dir: str, metadata: dict, dataset_list: list,
         profile_dir = os.environ.get('WISTPU_PROFILE')
         prof = None
         global_step = 0
-        input_wait = 0.0  # host time spent waiting for a batch
-        device_time = 0.0  # host time spent in the steps
+        loop_s = input_s = 0.0  # the epoch loops' time, and the input path's in it
         for epoch in range(start_epoch, config.EPOCHS):
             epoch_losses = []
             print(f'\nEpoch {epoch + 1}/{config.EPOCHS}')
-            t_mark = time.perf_counter()
-            for batch in device_batches(train_loader, device):
-                t_have_batch = time.perf_counter()
-                input_wait += t_have_batch - t_mark
-                if profile_dir and global_step == PROFILE_STEPS[0]:
-                    prof = _start_profile(device)
-                loss = train_step(batch)  # the global batch's, on every rank
-                epoch_losses.append(loss)  # on the device; waited for every SYNC_EVERY
-                global_step += 1
-                if len(epoch_losses) % SYNC_EVERY == 0:
-                    loss.item()
-                if prof is not None and global_step == PROFILE_STEPS[1]:
-                    try:
-                        _stop_profile(prof, profile_dir, device, metadata)
-                    except Exception as e:
-                        print(f'\tTrace parse failed (non-fatal): {e}')
-                    prof, profile_dir = None, None
-                t_mark = time.perf_counter()
-                device_time += t_mark - t_have_batch
+            before = trace.totals()
+            with trace.span('train.loop', id=epoch):
+                for batch in device_batches(train_loader, device):
+                    if profile_dir and global_step == PROFILE_STEPS[0]:
+                        prof = trace.start_profile(device)
+                    loss = train_step(batch)  # the global batch's, on every rank
+                    epoch_losses.append(loss)  # on the device; waited for every SYNC_EVERY
+                    global_step += 1
+                    if len(epoch_losses) % SYNC_EVERY == 0:
+                        loss.item()
+                    if prof is not None and global_step == PROFILE_STEPS[1]:
+                        try:
+                            busy = trace.stop_profile(prof, profile_dir)
+                            if busy is not None:
+                                metadata['device_duty_profiled'] = round(busy, 4)
+                                print(f'\tProfiled device-busy fraction: {100 * busy:.1f}%')
+                        except Exception as e:
+                            print(f'\tTrace parse failed (non-fatal): {e}')
+                        prof, profile_dir = None, None
+            after = trace.totals()
+            loop_s += _spent(before, after, 'train.loop')
+            input_s += _spent(before, after, 'loader.wait') + _spent(before, after,
+                                                                      'loader.to_device')
             avg_train_loss = (float(np.mean([loss.item() for loss in epoch_losses]))
                               if epoch_losses else 0.0)
             print(f'\tEpoch {epoch + 1} Avg Loss: {avg_train_loss:.4f}')
@@ -362,17 +333,15 @@ def train(output_dir: str, metadata: dict, dataset_list: list,
                 extra={'epoch': epoch + 1, 'best_val_loss': best_val_loss,
                        'training_history': metadata['training_history']})
         if prof is not None:  # fewer micro-steps than the traced window
-            prof.stop()
+            prof.prof.stop()
 
         end_time = datetime.now()
         elapsed = format_duration(start_time, end_time)
         print(f'\tTraining completed in {elapsed}')
         metadata['training_time'] = elapsed
-        # the share of the loop's host time spent in steps rather than
-        # waiting for the input pipeline
-        total_loop = input_wait + device_time
-        if total_loop > 0:
-            duty = device_time / total_loop
+        # the share of the epoch loops' time spent outside the input path
+        if loop_s > 0:
+            duty = 1.0 - input_s / loop_s
             metadata['input_duty_cycle'] = round(duty, 4)
             print(f'\tInput-pipeline duty cycle: {100 * duty:.1f}%')
 

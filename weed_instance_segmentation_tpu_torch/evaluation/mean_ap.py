@@ -29,7 +29,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
+
+from weed_instance_segmentation_tpu_torch.engine import trace
 
 IOU_THRESHOLDS = np.round(np.arange(0.50, 1.0, 0.05), 2)  # 10 thresholds
 REC_THRESHOLDS = np.linspace(0.0, 1.00, 101)
@@ -150,7 +151,7 @@ class MeanAveragePrecision:
                 gi = np.nonzero(g_labels == c)[0]
                 order = np.argsort(-p_scores[pi], kind='stable')
                 pi = pi[order]
-                with record_function('IoU product'):
+                with trace.span('IoU product'):
                     iou, pa, ga = mask_iou_matrix(p_masks[pi], g_masks[gi], self.device)
                 per_class[int(c)] = {
                     'scores': p_scores[pi],

@@ -13,7 +13,9 @@ caller's autocast. The backbone is Swin or ResNet, by the config's type.
 ``remat`` recomputes activations in the backward, as the JAX model's: True =
 Swin blocks and deformable encoder layers, 'encoder' = encoder layers only,
 False = store everything (the ResNet backbone takes none, as in the JAX
-package).
+package). The forward's three stages are the spans ``model.backbone``,
+``model.pixel_decoder`` and ``model.decoder`` (the heads included;
+``engine/trace.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Any, NamedTuple
 import torch
 from torch import nn
 
+from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.models.configuration import (
     Mask2FormerConfig, ResNetConfig, SwinConfig,
 )
@@ -72,10 +75,13 @@ class Mask2Former(nn.Module):
         the global batch's draw."""
         dtype = self.class_predictor.weight.dtype
         x = pixel_values.permute(0, 2, 3, 1).to(dtype)  # NHWC
-        features = self.backbone(x, generator, shard)
-        mask_features, multi_scale = self.pixel_decoder(features)
-        intermediate, mask_logits = self.transformer_module(multi_scale, mask_features)
-        class_logits = tuple(self.class_predictor(h) for h in intermediate)
+        with trace.span('model.backbone'):
+            features = self.backbone(x, generator, shard)
+        with trace.span('model.pixel_decoder'):
+            mask_features, multi_scale = self.pixel_decoder(features)
+        with trace.span('model.decoder'):
+            intermediate, mask_logits = self.transformer_module(multi_scale, mask_features)
+            class_logits = tuple(self.class_predictor(h) for h in intermediate)
         return Mask2FormerOutput(
             class_queries_logits=class_logits[-1],
             masks_queries_logits=mask_logits[-1],

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.models.configuration import Mask2FormerConfig
 from weed_instance_segmentation_tpu_torch.models.position_embedding import sine_position_embedding
 from weed_instance_segmentation_tpu_torch.ops.constants import device_constant
@@ -123,8 +124,8 @@ class MSDeformAttn(nn.Module):
     @staticmethod
     def core(value, locations, attn, spatial_shapes):
         """The MSDA sampling sum (float32 coordinates, the value dtype's
-        sums), outside autocast."""
-        with _autocast_off(value.device.type):
+        sums), outside autocast, in the span ``model.msda``."""
+        with trace.span('model.msda'), _autocast_off(value.device.type):
             return msda(value, spatial_shapes, locations, attn)
 
 

@@ -37,10 +37,11 @@ is queued in ROADMAP.md.
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
-# the profiler range of the value gradient's sums (a trace's device time
-# for them is the work launched inside it)
+from weed_instance_segmentation_tpu_torch.engine import trace
+
+# the span of the value gradient's sums (a trace's device time for them is
+# the work launched inside its range)
 VALUE_GRAD_RANGE = 'msda value-gradient sum'
 
 
@@ -95,7 +96,7 @@ def _add_rows(table: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> Non
     sort) and adds each run of equal ones in order; ``index_add_`` would add
     with atomics there, in an order that changes from call to call. On the
     CPU ``index_add_`` adds serially."""
-    with record_function(VALUE_GRAD_RANGE):
+    with trace.span(VALUE_GRAD_RANGE):
         if table.is_cuda:
             table.index_put_((idx,), rows, accumulate=True)
         else:

@@ -7,6 +7,13 @@ solved by ``scipy.optimize.linear_sum_assignment`` as the HF matcher does
 Jonker–Volgenant solver is not ported: :func:`batched_linear_sum_assignment`
 solves every (layer, image) problem of a training step after ONE
 device→host copy of the stacked costs.
+
+Its spans (``engine/trace.py``): ``lap.wait``, the blocking copy of the
+costs to the host, which waits for the device to finish everything queued
+before it; ``lap.solve``, the solves and the copy back; and ``lap.bubble``
+around both, whose timing events (on a CUDA device) enclose on the stream
+only those two small copies: their device ms are the idle the round trip
+opens.
 """
 
 from __future__ import annotations
@@ -14,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from scipy.optimize import linear_sum_assignment as _scipy_lsa
+
+from weed_instance_segmentation_tpu_torch.engine import trace
 
 
 def linear_sum_assignment(cost: np.ndarray) -> np.ndarray:
@@ -33,6 +42,10 @@ def linear_sum_assignment(cost: np.ndarray) -> np.ndarray:
 def batched_linear_sum_assignment(costs: torch.Tensor) -> torch.Tensor:
     """(K, R, C) costs on any device → (K, R) int64 col4row on that device,
     with one device→host copy of the costs and one host→device copy back."""
-    host = costs.detach().float().cpu().numpy()
-    col4row = np.stack([linear_sum_assignment(c) for c in host])
-    return torch.from_numpy(col4row).to(costs.device)
+    costs = costs.detach().float()
+    with trace.span('lap.bubble', device=costs.device):
+        with trace.span('lap.wait'):
+            host = costs.cpu().numpy()
+        with trace.span('lap.solve'):
+            col4row = np.stack([linear_sum_assignment(c) for c in host])
+            return torch.from_numpy(col4row).to(costs.device)

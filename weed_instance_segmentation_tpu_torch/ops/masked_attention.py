@@ -24,19 +24,22 @@ into a float32 scratch that a last launch merges (the forward's chunk maxima
 and sums) or sums (dQ); float32 runs on CUDA cores with no split. For a CPU
 tensor the forward is :func:`masked_attention_plain` and the backward its
 vector-Jacobian product (:func:`masked_attention_vjp_plain`). There is no
-fallback. Each forward launch adds one to ``masked_attention.launches``, each
-backward to ``masked_attention.backward_launches``.
+fallback. Each forward launch adds one to the counter :data:`LAUNCHES`
+(``engine/trace.py``), each backward to :data:`BACKWARD_LAUNCHES`.
 """
 
 from __future__ import annotations
 
 import torch
 
+from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.ops.cuda_build import (
     check_aligned, check_attention_inputs, entry_point, launch, sm_count,
 )
 
 _LIBRARY = 'masked_attention'
+LAUNCHES = 'wistpu.masked_attention_fwd.launches'
+BACKWARD_LAUNCHES = 'wistpu.masked_attention_bwd.launches'
 HEAD_DIMS = (16, 32, 64)
 MAX_QUERIES = 512
 MASKED_BIAS = -1e9
@@ -129,7 +132,7 @@ def _forward_cuda(q, k, v, mask):
            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
            lse.data_ptr(), None if part is None else part.data_ptr(), b, heads, nq, ns,
            head_dim, int(bf16), chunks)
-    masked_attention.launches += 1
+    trace.count(LAUNCHES)
     return out, lse
 
 
@@ -163,7 +166,7 @@ def _backward_cuda(q, k, v, out, lse, mask, grad_out):
            lse.data_ptr(), mask.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
            delta.data_ptr(), dq_part.data_ptr() if bf16 else None, b, heads, nq, ns,
            head_dim, int(bf16), chunks)
-    masked_attention.backward_launches += 1
+    trace.count(BACKWARD_LAUNCHES)
     return dq, dk, dv
 
 
@@ -204,6 +207,3 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _check_kernel(q, k, v, mask)
     return _forward_op(q, k, v, mask)[0]
 
-
-masked_attention.launches = 0
-masked_attention.backward_launches = 0

@@ -31,6 +31,7 @@ import functools
 import numpy as np
 import torch
 
+from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.ops.constants import device_constant
 from weed_instance_segmentation_tpu_torch.ops.cuda_build import entry_point, launch
 from weed_instance_segmentation_tpu_torch.ops.resize import (
@@ -38,6 +39,7 @@ from weed_instance_segmentation_tpu_torch.ops.resize import (
 )
 
 _LIBRARY = 'postprocess_stats'
+LAUNCHES = 'wistpu.fused_upsample_stats.launches'
 # Output rows a block makes, and warps a block, where they fit (timed on the
 # card by profile_postprocess_stats.py; PERF.md)
 BAND_ROWS = 32
@@ -181,8 +183,8 @@ def fused_upsample_stats(mask_logits: torch.Tensor, score_hw: tuple[int, int] = 
     Calls the registered operator ``torch.ops.wistpu.fused_upsample_stats``
     (so that ``torch.export`` records it): on a CUDA tensor it launches the
     kernel (and raises if it cannot); on a CPU tensor it runs
-    :func:`fused_upsample_stats_plain`. Each launch adds one to
-    ``fused_upsample_stats.launches``."""
+    :func:`fused_upsample_stats_plain`. Each launch adds one to the counter
+    :data:`LAUNCHES` (``engine/trace.py``)."""
     _check(mask_logits, score_hw)
     if mask_logits.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'no kernel for device {mask_logits.device}')
@@ -213,8 +215,6 @@ def _launch(mask_logits: torch.Tensor, score_hw: tuple[int, int], band_rows: int
            cnt_part.data_ptr(), sig_sum.data_ptr(), pos_cnt.data_ptr(), bins.data_ptr(),
            b * q, hm, wm, sh, sw, band_rows, int(tile_stores(sw)), v_off, y_off, smem,
            block_threads(sw, warps))
-    fused_upsample_stats.launches += 1
+    trace.count(LAUNCHES)
     return sig_sum, pos_cnt, bins
 
-
-fused_upsample_stats.launches = 0

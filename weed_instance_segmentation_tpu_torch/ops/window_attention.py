@@ -26,9 +26,9 @@ none). Each block of the backward takes one head and a run of windows
 a second launch sums in run order, so dBias has the same bits on every call.
 The forward takes T ≤ ``MAX_TOKENS``, the backward T ≤
 ``BACKWARD_MAX_TOKENS``. There is no fallback: on a CUDA tensor the wrapper
-launches the kernels or raises. Each forward launch adds one to
-``window_attention.launches``, each backward launch to
-``window_attention.backward_launches``.
+launches the kernels or raises. Each forward launch adds one to the counter
+:data:`LAUNCHES` (``engine/trace.py``), each backward launch to
+:data:`BACKWARD_LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -37,11 +37,14 @@ import math
 
 import torch
 
+from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.ops.cuda_build import (
     check_aligned, check_attention_inputs, entry_point, launch, sm_count,
 )
 
 _LIBRARY = 'window_attention'
+LAUNCHES = 'wistpu.window_attention_fwd.launches'
+BACKWARD_LAUNCHES = 'wistpu.window_attention_bwd.launches'
 HEAD_DIMS = (16, 32, 64)
 MAX_TOKENS = 256  # the forward
 BACKWARD_MAX_TOKENS = 144  # the backward: Swin's window 12; its bf16 dBias sum lives in registers
@@ -154,7 +157,7 @@ def _forward_cuda(q, k, v, rel_bias, attn_mask):
            None if attn_mask is None else attn_mask.data_ptr(),
            None if mask_used is None else mask_used.data_ptr(), out.data_ptr(),
            lse.data_ptr(), nw, heads, tokens, head_dim, n_img, int(q.dtype == torch.bfloat16))
-    window_attention.launches += 1
+    trace.count(LAUNCHES)
     return out, lse
 
 
@@ -191,7 +194,7 @@ def _backward_cuda(q, k, v, out, lse, rel_bias, attn_mask, grad_out):
            None if mask_used is None else mask_used.data_ptr(), dq.data_ptr(),
            dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), part.data_ptr(), nw, heads,
            tokens, head_dim, n_img, int(q.dtype == torch.bfloat16), runs)
-    window_attention.backward_launches += 1
+    trace.count(BACKWARD_LAUNCHES)
     return dq, dk, dv, dbias
 
 
@@ -239,6 +242,3 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError('attn_mask is a constant: it takes no gradient')
     return _forward_op(q, k, v, rel_bias, attn_mask)[0]
 
-
-window_attention.launches = 0
-window_attention.backward_launches = 0
