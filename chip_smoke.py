@@ -5,7 +5,7 @@
 Phases, each of which must pass (the script exits non-zero on any failure):
 
 1. the card: name and power limit;
-2. build the three CUDA libraries from ``weed_instance_segmentation_tpu_torch/
+2. build the four CUDA libraries from ``weed_instance_segmentation_tpu_torch/
    csrc`` (one ``nvcc`` each, started together, into the package's ``build/``);
 3. each kernel against its plain PyTorch version, with times (CUDA events,
    medians, in turns with the plain version and one PyTorch library call;
@@ -23,13 +23,17 @@ Phases, each of which must pass (the script exits non-zero on any failure):
    (f32 on the CUDA-core kernels, bf16 on the tensor-core kernels, forward
    and backward), each level's times under ``by_s`` in the summary, and the
    bf16 forward at the serving batch (B 4, S 10000) under
-   ``serving_b4_s10000``; and the MSDA value gradient at the training shape
-   (value (2, 13125, 8, 32) bf16): its fixed-order float32 sums the same
-   bits over 10 calls and through two backward calls, and their device ms;
+   ``serving_b4_s10000``; the MSDA forward kernel at the serving shape
+   (value (4, 13125, 8, 32) bf16, 13125 queries, 3 levels, 4 points): the
+   plain version's bits, the same bits from two calls, its times against
+   the plain version's and its byte bound; and the MSDA value gradient at
+   the training shape (value (2, 13125, 8, 32) bf16): its fixed-order
+   float32 sums the same bits over 10 calls and through two backward
+   calls, and their device ms;
 4. serving: Swin-L Mask2Former, 800², batch 4, bf16, random seeded weights;
    3 requests of uint8 (4, 1024, 1024, 3) through ``make_serving_fn``; each
-   must launch 24 window-attention, 9 masked-attention and 1 post-process
-   forward kernels; then one more request whose 9 decoder masked-attention
+   must launch 24 window-attention, 9 masked-attention, 6 MSDA and 1
+   post-process forward kernels; then one more request whose 9 decoder masked-attention
    calls are recorded, each held against the plain version on its real
    inputs and masks;
 5. training: Swin-L 800² batch 2, bf16 autocast over float32 parameters,
@@ -62,7 +66,7 @@ Phases, each of which must pass (the script exits non-zero on any failure):
    an (800, 800) id map with valid segments, at least one kept),
    ``score_images`` over the 8-image cache (8 per-image mAPs in ascending
    order), each kernel's launches equal to 24 window-attention, 9
-   masked-attention and 1 post-process forwards an image, a split of one
+   masked-attention, 6 MSDA and 1 post-process forwards an image, a split of one
    image's time by stage, that image's bf16 logits post-processed on the
    card and on the CPU (the same segments), both attention kernels' bf16
    forwards against their plain versions at the path's batch-1 shapes
@@ -93,7 +97,7 @@ Phases, each of which must pass (the script exits non-zero on any failure):
    seeded weights made to keep slots: ``export_serving`` (seconds, MiB),
    ``load_serving`` in a fresh ``python3`` that cannot import the port's
    ``models`` (5 requests, each launching window forward 24 / 0, masked
-   forward 9 and post-process 1), the outputs of that process and of the
+   forward 9, MSDA 6 and post-process 1), the outputs of that process and of the
    program loaded here equal to the live ``make_serving_fn``'s (scores
    within 1e-5), and the loaded program's and the live function's median
    ms a request, img/s and peak memory, timed in turns.
@@ -188,7 +192,7 @@ from weed_instance_segmentation_tpu_torch.processing.postprocess import (
     SCORE_RESOLUTION, class_probabilities, post_process_instance_arrays,
 )
 
-LIBRARIES = ('postprocess_stats', 'window_attention', 'masked_attention')
+LIBRARIES = ('postprocess_stats', 'window_attention', 'masked_attention', 'msda')
 CSRC = 'weed_instance_segmentation_tpu_torch/csrc/'
 KERNELS = {  # name → (source, the TPU kernel it replaces)
     'fused_upsample_stats': (CSRC + 'postprocess_stats.cu',
@@ -197,6 +201,8 @@ KERNELS = {  # name → (source, the TPU kernel it replaces)
     'window_attention_bwd': (CSRC + 'window_attention.cu', 'tools/ab_window_attn.py:52'),
     'masked_attention_fwd': (CSRC + 'masked_attention.cu', 'tools/ab_masked_attn.py:71'),
     'masked_attention_bwd': (CSRC + 'masked_attention.cu', 'tools/ab_masked_attn.py:71'),
+    'msda_fwd': (CSRC + 'msda.cu', 'none: the JAX package samples with XLA '
+                                   '(weed_instance_segmentation_tpu/ops/msda_select.py)'),
 }
 SERVING_BATCH, SERVING_IN, SERVING_HW, REQUESTS = 4, 1024, 800, 3
 TRAIN_BATCH, TRAIN_HW, TRAIN_INSTANCES, TRAIN_LABELS = 2, 800, 10, 5
@@ -295,7 +301,8 @@ LAUNCH_COUNTERS = {'fused_upsample_stats': postprocess_kernel_ops.LAUNCHES,
                    'window_attention_fwd': window_attention_ops.LAUNCHES,
                    'window_attention_bwd': window_attention_ops.BACKWARD_LAUNCHES,
                    'masked_attention_fwd': masked_attention_ops.LAUNCHES,
-                   'masked_attention_bwd': masked_attention_ops.BACKWARD_LAUNCHES}
+                   'masked_attention_bwd': masked_attention_ops.BACKWARD_LAUNCHES,
+                   'msda_fwd': deformable_attention.LAUNCHES}
 _counted = dict.fromkeys(LAUNCH_COUNTERS, 0)
 
 
@@ -647,24 +654,62 @@ MSDA_SHAPES = ((25, 25), (50, 50), (100, 100))  # Swin-L's encoder levels at 800
 MSDA_HEADS, MSDA_POINTS, MSDA_HEAD_DIM, MSDA_CALLS = 8, 4, 32, 10
 
 
-def msda_inputs(dev: torch.device) -> tuple:
-    """The deformable encoder's MSDA inputs at training batch 2, 800², in
-    bf16 as autocast forms them: value (2, 13125, 8, 32), locations within a
-    few cells of each query's reference point, softmaxed weights, and a
-    cotangent of the output's shape."""
+def msda_inputs(dev: torch.device, batch: int = TRAIN_BATCH) -> tuple:
+    """The deformable encoder's MSDA inputs at 800² (training batch 2 unless
+    stated), in bf16 as autocast and the bf16 serving model form them: value
+    (batch, 13125, 8, 32), locations within a few cells of each query's
+    reference point, softmaxed weights, and a cotangent of the output's
+    shape."""
     l_total = sum(h * w for h, w in MSDA_SHAPES)
     g = torch.Generator(device=dev).manual_seed(21)
-    value = torch.randn((TRAIN_BATCH, l_total, MSDA_HEADS, MSDA_HEAD_DIM), generator=g,
+    value = torch.randn((batch, l_total, MSDA_HEADS, MSDA_HEAD_DIM), generator=g,
                         device=dev).bfloat16()
     ref = torch.from_numpy(reference_points_constant(MSDA_SHAPES)).to(dev)
-    shape = (TRAIN_BATCH, l_total, MSDA_HEADS, len(MSDA_SHAPES), MSDA_POINTS)
+    shape = (batch, l_total, MSDA_HEADS, len(MSDA_SHAPES), MSDA_POINTS)
     locations = (ref[None, :, None, None, None, :]
                  + 0.02 * torch.randn((*shape, 2), generator=g, device=dev)).bfloat16()
     weights = torch.softmax(torch.randn((*shape[:3], shape[3] * shape[4]), generator=g,
                                         device=dev), dim=-1).reshape(shape).bfloat16()
-    cot = torch.randn((TRAIN_BATCH, l_total, MSDA_HEADS * MSDA_HEAD_DIM), generator=g,
+    cot = torch.randn((batch, l_total, MSDA_HEADS * MSDA_HEAD_DIM), generator=g,
                       device=dev).bfloat16()
     return value, locations, weights, cot
+
+
+@torch.no_grad()
+def phase_msda_forward(dev: torch.device) -> dict:
+    """The MSDA forward kernel at the serving shape (Swin-L 800², batch 4,
+    bf16): the plain version's bits, the same bits from two calls, and its
+    times against the plain version's and the byte bound."""
+    value, locations, weights, _ = msda_inputs(dev, SERVING_BATCH)
+    args = (value, MSDA_SHAPES, locations, weights)
+    before = counts()['msda_fwd']
+    first, second = deformable_attention.msda(*args), deformable_attention.msda(*args)
+    check(counts()['msda_fwd'] - before == 2, 'two MSDA calls did not launch the kernel twice')
+    want = deformable_attention._msda_fused(*args)
+    differ = int((first != want).sum())
+    check(differ == 0, f'the MSDA kernel differs from the plain version at {differ} of '
+                       f'{want.numel()} outputs')
+    check(torch.equal(first, second), 'two MSDA kernel calls gave different bits')
+    t = timed_in_turns({'plain': lambda: deformable_attention._msda_fused(*args),
+                        'kernel': lambda: deformable_attention.msda(*args)})
+    dev_ms = device_ms(lambda: deformable_attention.msda(*args))
+    plain_dev_ms = device_ms(lambda: deformable_attention._msda_fused(*args))
+    # the value table, locations and weights read once, the output written
+    # once; a multiply and an add a tap and channel
+    moved = sum(x.numel() * x.element_size() for x in (value, locations, weights, first))
+    taps = weights.numel() * 4
+    bound_ = bound(moved, 2 * taps * MSDA_HEAD_DIM, torch.float32)
+    log(f'MSDA forward kernel at serving b{SERVING_BATCH} {SERVING_HW}² (value '
+        f'{tuple(value.shape)} bf16, {taps / 1e6:.2f} M taps of '
+        f'{MSDA_HEAD_DIM * value.element_size()} bytes = '
+        f'{taps * MSDA_HEAD_DIM * value.element_size() / 1e9:.2f} GB of row reads): the plain '
+        f'version\'s bits, the same bits from two calls; kernel {t["kernel"]:.4f} ms, plain '
+        f'{t["plain"]:.4f} ms (medians of {TIMED_RUNS}); device busy {dev_ms:.4f} / '
+        f'{plain_dev_ms:.4f} ms; moves {moved / 1e6:.1f} MB, bound {bound_["bound_ms"]:.4f} ms '
+        f'({bound_["bound_by"]}), {100 * bound_["bound_ms"] / dev_ms:.2f} % of it')
+    return {'max_abs_err': 0.0, 'ms': t['kernel'], 'plain_ms': t['plain'], **bound_,
+            'library_ms': None, 'device_ms': dev_ms, 'plain_device_ms': plain_dev_ms,
+            'library_device_ms': None}
 
 
 def phase_msda_value_grad(dev: torch.device) -> dict:
@@ -722,7 +767,8 @@ def phase_serving(dev: torch.device) -> dict:
 
     cfg = model.config
     per_request = {'fused_upsample_stats': 1, 'window_attention_fwd': sum(cfg.backbone_config.depths),
-                   'masked_attention_fwd': cfg.decoder_layers - 1}
+                   'masked_attention_fwd': cfg.decoder_layers - 1,
+                   'msda_fwd': cfg.encoder_layers}
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
     latencies = []
@@ -880,6 +926,7 @@ def phase_training(dev: torch.device, cache_dir: str) -> dict:
         for name in ('window_attention_fwd', 'window_attention_bwd', 'masked_attention_fwd',
                      'masked_attention_bwd'):
             check(launched[name] > 0, f'micro-step {i} did not launch {name}')
+        check(launched['msda_fwd'] == 0, f'micro-step {i} launched the no-grad MSDA kernel')
         check(_unchanged(model, snapshot) != update,
               f'micro-step {i}: parameters {"unchanged on an update" if update else "changed between updates"}')
         log(f'micro-step {i}: loss {loss.item():.4f}, {1e3 * times[-1]:.1f} ms, '
@@ -1024,6 +1071,7 @@ def phase_eval(dev: torch.device, root: str) -> dict:
     expected = {'fused_upsample_stats': EVAL_IMAGES,
                 'window_attention_fwd': n_batches * sum(cfg.backbone_config.depths),
                 'masked_attention_fwd': n_batches * (cfg.decoder_layers - 1),
+                'msda_fwd': n_batches * cfg.encoder_layers,
                 'window_attention_bwd': 0, 'masked_attention_bwd': 0}
     what = f'swin-large {TRAIN_HW}x{TRAIN_HW} b{EVAL_BATCH} f32, {EVAL_IMAGES} images'
 
@@ -1202,6 +1250,7 @@ def phase_inference(dev: torch.device, root: str) -> dict:
     expected = {'fused_upsample_stats': images_run,
                 'window_attention_fwd': images_run * sum(cfg.backbone_config.depths),
                 'masked_attention_fwd': images_run * (cfg.decoder_layers - 1),
+                'msda_fwd': images_run * cfg.encoder_layers,
                 'window_attention_bwd': 0, 'masked_attention_bwd': 0}
     check(launches == expected, f'inference launches {launches}, the loops imply {expected}')
     pixels = processor(images=images[1], return_tensors='np')['pixel_values']
@@ -1475,6 +1524,7 @@ def phase_trainer(dev: torch.device, root: str) -> dict:
                 'window_attention_bwd': micro_steps * blocks,
                 'masked_attention_fwd': (micro_steps + val_batches + test_batches) * masked,
                 'masked_attention_bwd': micro_steps * masked,
+                'msda_fwd': (val_batches + test_batches) * cfg.encoder_layers,
                 'fused_upsample_stats': TRAINER_SPLITS['Test']}
     check(launches == expected, f'trainer launches {launches}, the loops imply {expected}')
 
@@ -1720,6 +1770,7 @@ def phase_data_parallel(dev: torch.device, root: str) -> dict:
                 'window_attention_bwd': micro_steps * blocks,
                 'masked_attention_fwd': (micro_steps + val_batches + test_batches) * masked,
                 'masked_attention_bwd': micro_steps * masked,
+                'msda_fwd': (val_batches + test_batches) * cfg.encoder_layers,
                 'fused_upsample_stats': TRAINER_SPLITS['Test'] // DP_RANKS}
     t0 = time.perf_counter()
     reports = _run_ranks(root, os.path.join(root, 'dp_reports'))
@@ -1949,8 +2000,10 @@ def phase_tiny_parity(dev: torch.device) -> None:
                         {n: p.detach().cpu() for n, p in model.named_parameters()}, launched))
     (want_loss, want_grads, want_params, cpu_launched), (loss, grads, params, gpu_launched) = results
     check(not any(cpu_launched.values()), f'the CPU step launched kernels: {cpu_launched}')
-    check(all(gpu_launched[k] > 0 for k in gpu_launched if k != 'fused_upsample_stats'),
-          f'the card step did not launch every attention kernel: {gpu_launched}')
+    check(all(gpu_launched[k] > 0 for k in gpu_launched
+              if k not in ('fused_upsample_stats', 'msda_fwd')) and gpu_launched['msda_fwd'] == 0,
+          f'the card step did not launch every attention kernel, or launched the no-grad '
+          f'MSDA kernel: {gpu_launched}')
     loss_err = abs(loss - want_loss) / abs(want_loss)
     check(loss_err <= 1e-5, f'tiny-test train loss differs by {loss_err:.2e} relative')
     worst, noise_leaves = (0.0, ''), []
@@ -1980,10 +2033,10 @@ def phase_tiny_parity(dev: torch.device) -> None:
 
 
 EXPORT_REQUESTS = 5
-EXPORT_ARCHS = {  # arch → kernel launches a request: window and masked forward, post-process
-    'swin-large': {'window_attention_fwd': 24, 'masked_attention_fwd': 9,
+EXPORT_ARCHS = {  # arch → launches a request: window, masked and MSDA forward, post-process
+    'swin-large': {'window_attention_fwd': 24, 'masked_attention_fwd': 9, 'msda_fwd': 6,
                    'fused_upsample_stats': 1},
-    'resnet50': {'window_attention_fwd': 0, 'masked_attention_fwd': 9,
+    'resnet50': {'window_attention_fwd': 0, 'masked_attention_fwd': 9, 'msda_fwd': 6,
                  'fused_upsample_stats': 1},
 }
 EXPORT_SCORE_TOL = 1e-5  # loaded program against the live function, the same kernels
@@ -1996,8 +2049,8 @@ sys.modules['weed_instance_segmentation_tpu_torch.models'] = None  # import rais
 import torch
 from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.engine.export import load_serving
-from weed_instance_segmentation_tpu_torch.ops import masked_attention, postprocess_kernel
-from weed_instance_segmentation_tpu_torch.ops import window_attention
+from weed_instance_segmentation_tpu_torch.ops import deformable_attention, masked_attention
+from weed_instance_segmentation_tpu_torch.ops import postprocess_kernel, window_attention
 out_dir, n, shape, results = sys.argv[1], int(sys.argv[2]), json.loads(sys.argv[3]), sys.argv[4]
 t0 = time.perf_counter()
 serve, manifest = load_serving(out_dir)
@@ -2008,6 +2061,7 @@ requests = [torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.ui
             for _ in range(n)]
 ops = {'window_attention_fwd': window_attention.LAUNCHES,
        'masked_attention_fwd': masked_attention.LAUNCHES,
+       'msda_fwd': deformable_attention.LAUNCHES,
        'fused_upsample_stats': postprocess_kernel.LAUNCHES}
 launches, out = [], []
 for raw in requests:
@@ -2216,6 +2270,7 @@ def main() -> int:
     timing = {'fused_upsample_stats': phase_postprocess_kernel(dev)}
     timing.update(phase_window_attention(dev))
     timing.update(phase_masked_attention(dev))
+    timing['msda_fwd'] = phase_msda_forward(dev)
     phase_msda_value_grad(dev)
 
     serving = phase_serving(dev)
@@ -2230,13 +2285,16 @@ def main() -> int:
                  'masked_attention_bwd'):
         check(training[name] > 0, f'the training run never launched {name}')
     check(serving['fused_upsample_stats'] > 0, 'the serving run never launched the post-process')
-    for name in ('fused_upsample_stats', 'window_attention_fwd', 'masked_attention_fwd'):
+    check(training['msda_fwd'] == 0, 'the training run launched the no-grad MSDA kernel')
+    for name in ('fused_upsample_stats', 'window_attention_fwd', 'masked_attention_fwd',
+                 'msda_fwd'):
         check(evaluation[name] > 0, f'the eval run never launched {name}')
         check(inference[name] > 0, f'the inference run never launched {name}')
         check(exported['swin-large'][name] > 0, f'the export run never launched {name}')
     check(exported['resnet50']['masked_attention_fwd'] > 0
+          and exported['resnet50']['msda_fwd'] > 0
           and exported['resnet50']['fused_upsample_stats'] > 0,
-          'the resnet export run never launched the masked attention or the post-process')
+          'the resnet export run never launched the masked attention, MSDA or the post-process')
     phase_tiny_parity(dev)
     with tempfile.TemporaryDirectory() as root:
         phase_tiny_eval(dev, root)
@@ -2247,7 +2305,7 @@ def main() -> int:
         check(trainer[name] > 0, f'the trainer run never launched {name}')
         check(data_parallel[name] > 0, f'the data-parallel run never launched {name}')
 
-    path = {'fused_upsample_stats': serving}
+    path = {'fused_upsample_stats': serving, 'msda_fwd': serving}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         launches = path.get(name, training)[name]

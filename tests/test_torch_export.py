@@ -127,12 +127,13 @@ def test_loaded_program_matches_jax_serving(exported, monkeypatch):
 
 
 def test_exported_graph_calls_the_kernel_ops(exported):
-    """The saved graph calls the registered kernel operators: post-process
-    and masked-attention forward in both; window-attention forward in the
-    Swin model only; no backward."""
+    """The saved graph calls the registered kernel operators: post-process,
+    masked-attention and MSDA forward in both; window-attention forward in
+    the Swin model only; no backward."""
     graph = exported['program'].graph
     ops = {str(n.target) for n in graph.nodes if str(n.target).startswith('wistpu.')}
-    want = {'wistpu.fused_upsample_stats.default', 'wistpu.masked_attention_fwd.default'}
+    want = {'wistpu.fused_upsample_stats.default', 'wistpu.masked_attention_fwd.default',
+            'wistpu.msda_fwd.default'}
     if exported['arch'] == 'swin':
         want.add('wistpu.window_attention_fwd.default')
     assert ops == want

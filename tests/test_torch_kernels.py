@@ -1,6 +1,6 @@
 """The CUDA kernels' wrappers and, on a card, each kernel against its plain
-version: the post-process kernel, and the window-attention and
-masked-attention kernels forward and backward.
+version: the post-process kernel, the window-attention and
+masked-attention kernels forward and backward, and the MSDA forward.
 
 This file imports neither jax nor the JAX package, so the ``cuda`` tests also
 run on a machine that has only PyTorch and the CUDA toolkit:
@@ -8,8 +8,13 @@ run on a machine that has only PyTorch and the CUDA toolkit:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m cuda
 """
 
+import ctypes
 import json
 import math
+import os
+import re
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -18,7 +23,10 @@ import torch.nn.functional as F
 
 from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.evaluation.mean_ap import mask_iou_matrix
+from weed_instance_segmentation_tpu_torch.models.configuration import Mask2FormerConfig
+from weed_instance_segmentation_tpu_torch.models.pixel_decoder import PixelDecoder
 from weed_instance_segmentation_tpu_torch.models.swin import shifted_window_attn_mask
+from weed_instance_segmentation_tpu_torch.ops import deformable_attention as msda_ops
 from weed_instance_segmentation_tpu_torch.ops.masked_attention import (
     BACKWARD_LAUNCHES as MASKED_BACKWARD_LAUNCHES, BLOCKS_PER_SM, KEY_TILE,
     LAUNCHES as MASKED_LAUNCHES, ROW_TILE, key_chunks, masked_attention, masked_attention_plain,
@@ -895,3 +903,232 @@ def test_registered_ops_give_the_wrappers_bits_on_card(cuda_device):
     assert ops == {'wistpu.masked_attention_fwd.default', 'wistpu.window_attention_fwd.default',
                    'wistpu.fused_upsample_stats.default'}
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# name → (batch, queries, heads, head dim, points, level shapes)
+MSDA_CASES = {
+    'swin-l-800': (4, 13125, 8, 32, 4, ((25, 25), (50, 50), (100, 100))),  # the encoder at 800²
+    'tiny-d16': (2, 37, 2, 16, 4, ((4, 6), (2, 3), (1, 2))),
+    'd64': (2, 300, 4, 64, 2, ((12, 10), (6, 5), (3, 3), (2, 2))),
+}
+# locations that land on the map's edges (0, 1), on exact pixel centres
+# (x = loc * W - 0.5 an integer: 0.5 at W 25, 0.25 at W 50 or 12, 0.125 at
+# W 100) and outside it
+MSDA_SPECIAL = (0.0, 1.0, 0.5, 0.25, 0.125, -0.25, 1.25, 3.0, -2.0)
+
+
+def _msda_kernel_inputs(case, dtype, device):
+    """Value, locations and weights of ``case`` in ``dtype``: locations in
+    [-0.3, 1.3] with a fifth of them replaced by :data:`MSDA_SPECIAL`,
+    softmaxed weights."""
+    b, q, heads, d, points, shapes = MSDA_CASES[case]
+    g = torch.Generator().manual_seed(31)
+    value = torch.randn((b, sum(h * w for h, w in shapes), heads, d), generator=g)
+    locations = torch.rand((b, q, heads, len(shapes), points, 2), generator=g) * 1.6 - 0.3
+    special = torch.tensor(MSDA_SPECIAL)[torch.randint(0, len(MSDA_SPECIAL), locations.shape,
+                                                        generator=g)]
+    locations = torch.where(torch.rand(locations.shape, generator=g) < 0.2, special, locations)
+    weights = torch.softmax(torch.randn((b, q, heads, len(shapes) * points), generator=g), -1)
+    weights = weights.reshape(locations.shape[:-1])
+    return tuple(t.to(device, dtype) for t in (value, locations, weights)) + (shapes,)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
+def test_msda_operator_on_cpu_is_the_plain_version(dtype):
+    """``torch.ops.wistpu.msda_fwd`` on CPU tensors gives ``_msda_fused``'s
+    bits and launches nothing."""
+    value, locations, weights, shapes = _msda_kernel_inputs('tiny-d16', dtype, 'cpu')
+    launches = trace.counter(msda_ops.LAUNCHES)
+    got = torch.ops.wistpu.msda_fwd(value, [d for hw in shapes for d in hw], locations, weights)
+    assert torch.equal(got, msda_ops._msda_fused(value, shapes, locations, weights))
+    assert got.dtype == dtype and trace.counter(msda_ops.LAUNCHES) == launches
+
+
+def test_msda_operator_fake_gives_the_output_shape_and_dtype():
+    """The operator's fake implementation (what ``torch.export`` traces
+    with): (B, Q, heads · D) in the value's dtype, on meta and fake tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    value, locations, weights, shapes = _msda_kernel_inputs('d64', torch.bfloat16, 'cpu')
+    flat = [d for hw in shapes for d in hw]
+    want = (2, 300, 4 * 64)
+    got = torch.ops.wistpu.msda_fwd(value.to('meta'), flat, locations.to('meta'),
+                                    weights.to('meta'))
+    assert got.shape == want and got.dtype == torch.bfloat16 and got.device.type == 'meta'
+    with FakeTensorMode() as mode:
+        got = torch.ops.wistpu.msda_fwd(*(mode.from_tensor(t) for t in (value,)), flat,
+                                        mode.from_tensor(locations), mode.from_tensor(weights))
+    assert got.shape == want and got.dtype == torch.bfloat16
+
+
+def test_msda_without_grad_goes_through_the_operator():
+    """``msda`` calls the operator where no input needs a gradient (no-grad
+    mode, or inputs that need none) and the plain autograd route otherwise."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Calls(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    value, locations, weights, shapes = _msda_kernel_inputs('tiny-d16', torch.float32, 'cpu')
+    seen = {}
+    for route in ('no_grad', 'no_input_needs_grad', 'grad'):
+        leaf = value.clone().requires_grad_(route != 'no_input_needs_grad')
+        with torch.set_grad_enabled(route != 'no_grad'), Calls() as calls:
+            out = msda_ops.msda(leaf, shapes, locations, weights)
+        seen[route] = 'wistpu.msda_fwd.default' in calls.ops
+        assert torch.equal(out, msda_ops._msda_fused(value, shapes, locations, weights))
+    assert seen == {'no_grad': True, 'no_input_needs_grad': True, 'grad': False}
+
+
+def test_msda_kernel_check_rejects_what_the_kernel_does_not_take():
+    """The CUDA implementation's checks (they read no device): head dims
+    outside {16, 32, 64}, other dtypes, mixed location and weight dtypes,
+    more than four levels, levels that do not cover the value, and
+    non-contiguous inputs raise."""
+    value, locations, weights, shapes = _msda_kernel_inputs('tiny-d16', torch.bfloat16, 'cpu')
+    msda_ops._check_kernel(value, shapes, locations, weights)
+    with pytest.raises(ValueError, match='head_dim'):
+        msda_ops._check_kernel(value[..., :8].contiguous(), shapes, locations, weights)
+    with pytest.raises(TypeError, match='float32 or bfloat16'):
+        msda_ops._check_kernel(value.half(), shapes, locations, weights)
+    with pytest.raises(TypeError, match='one dtype'):
+        msda_ops._check_kernel(value, shapes, locations.float(), weights)
+    with pytest.raises(ValueError, match='levels'):
+        msda_ops._check_kernel(value, shapes[:2], locations, weights)
+    five = (shapes[0], shapes[1], (1, 1), (1, 1), (1, 1))
+    wide = torch.zeros((*locations.shape[:3], 5, *locations.shape[4:]), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='1 to 4 levels'):
+        msda_ops._check_kernel(torch.zeros((2, 33, 2, 16), dtype=torch.bfloat16), five, wide,
+                               wide[..., 0])
+    with pytest.raises(ValueError, match='contiguous'):
+        msda_ops._check_kernel(value.transpose(1, 2).contiguous().transpose(1, 2), shapes,
+                               locations, weights)
+    with pytest.raises(ValueError, match=r'\(B, L, heads, D\)'):
+        msda_ops._check_kernel(value, shapes, locations[..., :1], weights)
+
+
+@pytest.fixture(scope='module')
+def msda_source_on_cpu(tmp_path_factory):
+    """``csrc/msda.cu`` compiled by g++ for the CPU against the host
+    stand-ins in ``tests/cuda_host_stub/`` (device intrinsics with their
+    round-to-nearest arithmetic, no contracted multiply-add), its launch
+    rewritten as a loop over the grid's blocks and threads; the entry point
+    ``wis_msda_fwd`` bound with ``ctypes``."""
+    if shutil.which('g++') is None:
+        pytest.skip('needs g++ to compile the kernel source for the CPU')
+    here = os.path.dirname(os.path.abspath(__file__))
+    csrc = os.path.join(os.path.dirname(msda_ops.__file__), os.pardir, 'csrc')
+    with open(os.path.join(csrc, 'msda.cu')) as f:
+        source, launches = re.subn(r'(\w+<[^<>;]*>)<<<([^,]+), ([^,]+), [^>]*>>>',
+                                   r'EMULATE_GRID(\2, \3) \1', f.read())
+    assert launches == 1
+    out = tmp_path_factory.mktemp('msda_cpu')
+    src, lib = out / 'msda_cpu.cpp', out / 'libmsda_cpu.so'
+    src.write_text(source)
+    subprocess.run(['g++', '-std=c++17', '-O1', '-ffp-contract=off', '-shared', '-fPIC',
+                    '-I', os.path.join(here, 'cuda_host_stub'), '-I', csrc, '-o', str(lib),
+                    str(src)], check=True, capture_output=True, timeout=300)
+    fn = ctypes.CDLL(str(lib)).wis_msda_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.mark.parametrize('coords', [torch.float32, torch.bfloat16], ids=['coords-f32',
+                                                                         'coords-bf16'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case', ['tiny-d16', 'd64', 'd32'])
+def test_msda_source_on_the_cpu_gives_the_plain_bits(msda_source_on_cpu, case, dtype, coords):
+    """The kernel's own source, run on the CPU one thread after another
+    (:func:`msda_source_on_cpu`): its thread mapping, level offsets, bounds
+    and the order and rounding of its sums give ``_msda_fused``'s bits, at
+    every head dim it takes, with float32 or bfloat16 values, locations and
+    weights, up to four levels and two or four points; the entry point
+    refuses levels that do not cover the value."""
+    if case == 'd32':  # Swin-L's widths at a few queries of small maps
+        b, q, heads, d, points, shapes = 2, 45, 8, 32, 4, ((3, 3), (5, 5), (10, 10))
+        g = torch.Generator().manual_seed(7)
+        value = torch.randn((b, 134, heads, d), generator=g).to(dtype)
+        locations = (torch.rand((b, q, heads, 3, points, 2), generator=g) * 1.6 - 0.3).to(coords)
+        weights = torch.softmax(torch.randn((b, q, heads, 3 * points), generator=g), -1)
+        weights = weights.reshape(b, q, heads, 3, points).to(coords)
+    else:
+        value, locations, weights, shapes = _msda_kernel_inputs(case, dtype, 'cpu')
+        locations, weights = locations.float().to(coords), weights.float().to(coords)
+        b, q, heads, d = *locations.shape[:3], value.shape[3]
+    levels, points = locations.shape[3:5]
+    out = torch.empty((b, q, heads * d), dtype=dtype)
+    dims = [n for hw in shapes for n in hw] + [0] * (2 * (4 - levels))
+    args = [value.data_ptr(), locations.data_ptr(), weights.data_ptr(), out.data_ptr(), b,
+            value.shape[1], q, heads, d, levels, points, *dims, int(dtype == torch.bfloat16),
+            int(coords == torch.bfloat16), None]
+    assert msda_source_on_cpu(*args) == 0
+    assert torch.equal(out, msda_ops._msda_fused(value, shapes, locations, weights))
+    args[5] += 1  # l_total
+    assert msda_source_on_cpu(*args) != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case', list(MSDA_CASES))
+def test_msda_kernel_matches_plain_bit_for_bit(cuda_device, case, dtype):
+    """The MSDA forward kernel against ``_msda_fused`` on the card: the
+    same bits (it forms the same float32 tap weights with no contracted
+    multiply-add, rounds them, sums each corner's points in float32 in point
+    order and rounds, and adds the corners to an output in the value dtype
+    in the plain order), with locations on the edges, at exact pixel
+    centres and outside the map; one launch a call, and the same bits from
+    a second call."""
+    value, locations, weights, shapes = _msda_kernel_inputs(case, dtype, cuda_device)
+    launches = trace.counter(msda_ops.LAUNCHES)
+    with torch.no_grad():
+        got = msda_ops.msda(value, shapes, locations, weights)
+        again = msda_ops.msda(value, shapes, locations, weights)
+    assert trace.counter(msda_ops.LAUNCHES) == launches + 2
+    want = msda_ops._msda_fused(value, shapes, locations, weights)
+    assert got.dtype == dtype and got.shape == want.shape
+    differ = int((got != want).sum())
+    assert differ == 0, f'{differ} of {want.numel()} outputs differ'
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_msda_kernel_launches_six_times_a_swin_l_pixel_decoder_forward(cuda_device):
+    """The Swin-L pixel decoder at 800² (bf16, batch 1): six kernel launches
+    in a no-grad forward (one an encoder layer), none in a forward under
+    autograd (the plain ``_MSDA`` route)."""
+    config = Mask2FormerConfig.swin('large', num_labels=5)
+    decoder = PixelDecoder(config, config.backbone_config.channels).to(cuda_device,
+                                                                      torch.bfloat16)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    features = [torch.randn((1, 800 // s, 800 // s, c), generator=g, device=cuda_device,
+                            dtype=torch.bfloat16)
+                for s, c in zip((4, 8, 16, 32), config.backbone_config.channels)]
+    launches = trace.counter(msda_ops.LAUNCHES)
+    with torch.no_grad():
+        decoder.eval()(features)
+    assert trace.counter(msda_ops.LAUNCHES) - launches == config.encoder_layers == 6
+    launches = trace.counter(msda_ops.LAUNCHES)
+    decoder.train()(features)[0].float().sum().backward()
+    assert trace.counter(msda_ops.LAUNCHES) == launches
+
+
+@pytest.mark.cuda
+def test_msda_kernel_raises_on_what_it_does_not_take(cuda_device):
+    """A CUDA tensor takes the kernel or raises: head dim 8 and a float16
+    value raise, with no launch."""
+    value, locations, weights, shapes = _msda_kernel_inputs('tiny-d16', torch.bfloat16,
+                                                            cuda_device)
+    launches = trace.counter(msda_ops.LAUNCHES)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match='head_dim'):
+            msda_ops.msda(value[..., :8].contiguous(), shapes, locations, weights)
+        with pytest.raises(TypeError, match='float32 or bfloat16'):
+            msda_ops.msda(value.half(), shapes, locations, weights)
+    assert trace.counter(msda_ops.LAUNCHES) == launches

@@ -103,24 +103,26 @@ class _Open:
         self.rec, self.name, self.id, self.device = rec, name, id, device
 
     def __enter__(self):
+        self.start = None
+        if self.rec.on:
+            self.local = local = self.rec.local.s
+            stack = local.stack
+            if stack:
+                self.parent, parent_id = stack[-1]
+                if self.id is None:
+                    self.id = parent_id
+            else:
+                self.parent = None
+            stack.append((self.name, self.id))
+            self.first = None if self.device is None else _event(self.device)
+            self.start = _now()
+        # the range opens after the stamp, as it closes after the end stamp:
+        # the operator that opens it releases the interpreter lock, and
+        # another thread that takes it then delays the return, not the stamp
         self.range = None
         if _profiler._is_profiler_enabled:
             self.range = _profiler.record_function(self.name)
             self.range.__enter__()
-        if not self.rec.on:
-            self.start = None
-            return self
-        self.local = local = self.rec.local.s
-        stack = local.stack
-        if stack:
-            self.parent, parent_id = stack[-1]
-            if self.id is None:
-                self.id = parent_id
-        else:
-            self.parent = None
-        stack.append((self.name, self.id))
-        self.first = None if self.device is None else _event(self.device)
-        self.start = _now()
         return self
 
     def __exit__(self, *exc):

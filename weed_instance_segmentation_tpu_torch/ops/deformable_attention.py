@@ -30,8 +30,20 @@ Backward, split as the JAX package's custom VJP splits it
   einsum of the JAX package is a TPU workaround for row-serial scatters and
   is not ported.
 
-The JAX package has no Pallas kernel for MSDA; a hand-written Hopper kernel
-is queued in ROADMAP.md.
+The no-grad forward is a registered operator, ``torch.ops.wistpu.msda_fwd``
+(so that ``torch.export`` records it, ``engine/export.py``): for a CPU tensor
+it is :func:`_msda_fused`; for a CUDA tensor it launches
+``csrc/msda.cu``, one launch a call that computes the same function with the
+same rounding (value float32 or bfloat16, head dim in {16, 32, 64},
+locations and weights both float32 or both bfloat16, at most four levels),
+or raises. Each launch adds one to the counter :data:`LAUNCHES`
+(``engine/trace.py``). :func:`msda` takes the operator wherever no input
+needs a gradient. The JAX package has no Pallas kernel for MSDA (its routes
+are XLA), so the kernel replaces none.
+
+The one exception to "no fallback" in the port: under autograd the forward
+and backward stay the plain :class:`_MSDA` on the card too, until the
+backward has a kernel of its own.
 """
 
 from __future__ import annotations
@@ -39,10 +51,15 @@ from __future__ import annotations
 import torch
 
 from weed_instance_segmentation_tpu_torch.engine import trace
+from weed_instance_segmentation_tpu_torch.ops.cuda_build import entry_point, launch
 
 # the span of the value gradient's sums (a trace's device time for them is
 # the work launched inside its range)
 VALUE_GRAD_RANGE = 'msda value-gradient sum'
+_LIBRARY = 'msda'
+LAUNCHES = 'wistpu.msda_fwd.launches'
+HEAD_DIMS = (16, 32, 64)
+MAX_LEVELS = 4
 
 
 def _taps(spatial_shapes: tuple, l_total: int, b: int, heads: int,
@@ -126,6 +143,72 @@ def _value_grad(g, value_shape, dtype, spatial_shapes, locations, weights):
     return table.reshape(b, heads, l_total, head_dim).transpose(1, 2).to(dtype)
 
 
+def _check_kernel(value, spatial_shapes, locations, weights) -> None:
+    """What the kernel takes (it reads ``data_ptr()``, so only the CUDA
+    implementation calls this)."""
+    if value.ndim != 4 or locations.ndim != 6 or locations.shape[-1] != 2 \
+            or weights.shape != locations.shape[:-1] \
+            or locations.shape[0] != value.shape[0] or locations.shape[2] != value.shape[2]:
+        raise ValueError(f'value must be (B, L, heads, D), locations (B, Q, heads, levels, '
+                         f'points, 2) and weights (B, Q, heads, levels, points), got '
+                         f'{tuple(value.shape)}, {tuple(locations.shape)}, {tuple(weights.shape)}')
+    if value.dtype not in (torch.float32, torch.bfloat16) or weights.dtype != locations.dtype \
+            or locations.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f'the kernel takes a float32 or bfloat16 value and float32 or bfloat16 '
+                        f'locations and weights of one dtype, got {value.dtype}, '
+                        f'{locations.dtype}, {weights.dtype}')
+    if value.shape[3] not in HEAD_DIMS:
+        raise ValueError(f'the kernel takes head_dim in {HEAD_DIMS}, got value '
+                         f'{tuple(value.shape)}')
+    levels = locations.shape[3]
+    if not 1 <= levels <= MAX_LEVELS or len(spatial_shapes) != levels \
+            or sum(h * w for h, w in spatial_shapes) != value.shape[1]:
+        raise ValueError(f'the kernel takes 1 to {MAX_LEVELS} levels whose rows sum to the '
+                         f"value's {value.shape[1]}, got {spatial_shapes} for locations "
+                         f'{tuple(locations.shape)}')
+    if any(not t.is_contiguous() for t in (value, locations, weights)):
+        raise ValueError('the kernel\'s inputs must be contiguous')
+    if any(t.device != value.device for t in (locations, weights)):
+        raise ValueError('all inputs must be on one device')
+    if value.data_ptr() % 16:
+        raise ValueError('the kernel reads 16-byte vectors: value must start at a '
+                         '16-byte-aligned address')
+
+
+def _pairs(flat) -> tuple:
+    return tuple(zip(flat[::2], flat[1::2]))
+
+
+@torch.library.custom_op('wistpu::msda_fwd', mutates_args=(), device_types='cpu',
+                         schema='(Tensor value, int[] spatial_shapes, Tensor sampling_locations, '
+                                'Tensor attention_weights) -> Tensor')
+def _forward_op(value, spatial_shapes, sampling_locations, attention_weights):
+    return _msda_fused(value, _pairs(spatial_shapes), sampling_locations, attention_weights)
+
+
+@_forward_op.register_kernel('cuda')
+def _forward_cuda(value, spatial_shapes, sampling_locations, attention_weights):
+    shapes = _pairs(spatial_shapes)
+    _check_kernel(value, shapes, sampling_locations, attention_weights)
+    b, l_total, heads, head_dim = value.shape
+    _, q, _, levels, points, _ = sampling_locations.shape
+    out = torch.empty((b, q, heads * head_dim), dtype=value.dtype, device=value.device)
+    dims = [d for hw in shapes for d in hw] + [0] * (2 * (MAX_LEVELS - levels))
+    launch(entry_point(_LIBRARY, 'wis_msda_fwd', 4, 17), value.device,
+           f'MSDA forward for value {tuple(value.shape)}', value.data_ptr(),
+           sampling_locations.data_ptr(), attention_weights.data_ptr(), out.data_ptr(), b,
+           l_total, q, heads, head_dim, levels, points, *dims, int(value.dtype == torch.bfloat16),
+           int(sampling_locations.dtype == torch.bfloat16))
+    trace.count(LAUNCHES)
+    return out
+
+
+@_forward_op.register_fake
+def _forward_fake(value, spatial_shapes, sampling_locations, attention_weights):
+    b, _, heads, head_dim = value.shape
+    return value.new_empty((b, sampling_locations.shape[1], heads * head_dim))
+
+
 class _MSDA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights):
@@ -182,8 +265,13 @@ def msda(
             levels × points.
     Returns:
         (B, Q, heads * head_dim) in ``value.dtype``.
+
+    With no input needing a gradient this is the operator
+    ``torch.ops.wistpu.msda_fwd`` (on CUDA tensors the kernel, which raises
+    on what it does not take); otherwise the plain :class:`_MSDA`.
     """
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (value, sampling_locations, attention_weights)):
         return _MSDA.apply(value, tuple(spatial_shapes), sampling_locations, attention_weights)
-    return _msda_fused(value, spatial_shapes, sampling_locations, attention_weights)
+    return _forward_op(value, [d for hw in spatial_shapes for d in hw], sampling_locations,
+                       attention_weights)
