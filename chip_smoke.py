@@ -31,9 +31,12 @@ Phases, each of which must pass (the script exits non-zero on any failure):
    float32 sums the same bits over 10 calls and through two backward
    calls, and their device ms;
 4. serving: Swin-L Mask2Former, 800², batch 4, bf16, random seeded weights;
-   3 requests of uint8 (4, 1024, 1024, 3) through ``make_serving_fn``; each
-   must launch 24 window-attention, 9 masked-attention, 6 MSDA and 1
-   post-process forward kernels; then one more request whose 9 decoder masked-attention
+   a first request that captures the encoder's CUDA graph (24
+   window-attention and 6 MSDA launches recorded, and run by a profiled
+   replay, by kernel name), then 3 requests of uint8 (4, 1024, 1024, 3)
+   through ``make_serving_fn``, each replaying once and launching 9
+   masked-attention and 1 post-process forward kernels itself, the first
+   with the eager request's bits; then one more request whose 9 decoder masked-attention
    calls are recorded, each held against the plain version on its real
    inputs and masks;
 5. training: Swin-L 800² batch 2, bf16 autocast over float32 parameters,
@@ -154,7 +157,7 @@ from weed_instance_segmentation_tpu_torch.engine import train as engine_train
 from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.engine.checkpoint import load_pretrained, save_pretrained
 from weed_instance_segmentation_tpu_torch.engine.export import (
-    export_serving, load_serving, make_serving_fn,
+    ServingModule, export_serving, load_serving, make_serving_fn,
 )
 from weed_instance_segmentation_tpu_torch.engine.inference import run_inference_array
 from weed_instance_segmentation_tpu_torch.engine.model_utils import (
@@ -173,7 +176,7 @@ from weed_instance_segmentation_tpu_torch.ops import deformable_attention
 from weed_instance_segmentation_tpu_torch.ops import masked_attention as masked_attention_ops
 from weed_instance_segmentation_tpu_torch.ops import postprocess_kernel as postprocess_kernel_ops
 from weed_instance_segmentation_tpu_torch.ops import window_attention as window_attention_ops
-from weed_instance_segmentation_tpu_torch.ops.cuda_build import build_libraries, build_log
+from weed_instance_segmentation_tpu_torch.ops.cuda_build import build_libraries, build_log, captured
 from weed_instance_segmentation_tpu_torch.ops.masked_attention import (
     masked_attention, masked_attention_plain,
 )
@@ -313,6 +316,28 @@ def reset_counts() -> None:
 def counts() -> dict:
     """Each kernel's launches since the last :func:`reset_counts`."""
     return {key: trace.counter(name) - _counted[key] for key, name in LAUNCH_COUNTERS.items()}
+
+
+def captured_counts() -> dict:
+    """Each kernel's launches recorded by CUDA graph captures so far."""
+    return {key: trace.counter(captured(name)) for key, name in LAUNCH_COUNTERS.items()}
+
+
+def replayed_kernels(replay, raw: torch.Tensor) -> collections.Counter:
+    """The device kernels one call of ``replay(raw)`` runs, by function name,
+    from a profiler trace (a serving function's graph called directly: under
+    a profiler the serving function itself runs eagerly)."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        replay(raw)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'replay.json')
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)['traceEvents']
+    return collections.Counter(kernel_name(e['name']) for e in events
+                               if e.get('ph') == 'X' and e.get('cat') == 'kernel')
 
 
 def check_postprocess(logits: torch.Tensor, outputs: tuple) -> tuple[int, float]:
@@ -748,7 +773,12 @@ def check_result(res: dict, batch: int, hw: tuple, num_queries: int) -> None:
 
 
 def phase_serving(dev: torch.device) -> dict:
-    """Swin-L 800² b4 bf16: 3 requests through the serving function."""
+    """Swin-L 800² b4 bf16: 3 requests through the serving function, after
+    a first that captures its encoder graph: the capture records the
+    encoder's kernels, a profiled replay runs them by name, each request
+    replays once and its own launches and its replay's add up to a
+    request's, and the first replayed request gives the eager request's
+    bits. Returns the kernels' launches on the device."""
     t0 = time.perf_counter()
     model = build_model('swin-large', num_labels=5, dtype=torch.bfloat16, device=dev, seed=0)
     log(f'swin-large built in {time.perf_counter() - t0:.1f} s: '
@@ -760,37 +790,69 @@ def phase_serving(dev: torch.device) -> dict:
     requests = [torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
                 for _ in range(REQUESTS + 1)]
 
-    t0 = time.perf_counter()
-    serve(requests[0])
-    torch.cuda.synchronize()
-    log(f'warm-up request: {1e3 * (time.perf_counter() - t0):.1f} ms (first call, lazy init)')
-
     cfg = model.config
     per_request = {'fused_upsample_stats': 1, 'window_attention_fwd': sum(cfg.backbone_config.depths),
                    'masked_attention_fwd': cfg.decoder_layers - 1,
                    'msda_fwd': cfg.encoder_layers}
+    encoder = {k: per_request[k] if k in ('window_attention_fwd', 'msda_fwd') else 0
+               for k in LAUNCH_COUNTERS}
+    held, captures = captured_counts(), trace.counter('serve.graph.captures')
+    t0 = time.perf_counter()
+    serve(requests[0])
+    torch.cuda.synchronize()
+    log(f'warm-up request: {1e3 * (time.perf_counter() - t0):.1f} ms (first call: lazy init, '
+        f'the encoder graph\'s warm-up, capture and first replay)')
+    graph = {k: n - held[k] for k, n in captured_counts().items()}
+    check(trace.counter('serve.graph.captures') == captures + 1 and graph == encoder,
+          f'the first request captured {graph}, not {encoder}')
+    (key, replay), = serve.graphs.items()
+    kernels = replayed_kernels(replay, requests[1])
+    by_name = {'window_attention_fwd': sum(n for k, n in kernels.items()
+                                           if k.startswith('window_attention_fwd')),
+               'msda_fwd': kernels['msda_fwd_kernel']}
+    for name, n in by_name.items():
+        check(n == graph[name], f'a profiled replay ran {name} {n} times, the capture '
+                                f'recorded {graph[name]}')
+    log(f'encoder graph of {key[0]} {key[1]}: captured {graph}; a profiled replay ran '
+        f'{sum(kernels.values())} kernels, {by_name} of the hand-written ones, as captured')
+    with torch.inference_mode():
+        eager = ServingModule(model, out_hw=(SERVING_HW, SERVING_HW), emit_masks=False)(
+            requests[1])
+
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
+    replays = trace.counter('serve.graph.replays')
     latencies = []
     for i, raw in enumerate(requests[1:]):
-        before = counts()
+        before, replayed = counts(), trace.counter('serve.graph.replays')
         t0 = time.perf_counter()
         res = serve(raw)
         torch.cuda.synchronize()
         latencies.append(time.perf_counter() - t0)
-        launched = {k: v - before[k] for k, v in counts().items()}
+        ran = {k: v - before[k] for k, v in counts().items()}
+        check(trace.counter('serve.graph.replays') == replayed + 1,
+              f'request {i} replayed the graph {trace.counter("serve.graph.replays") - replayed} '
+              f'times, not once')
         for name, n in per_request.items():
-            check(launched[name] == n, f'request {i} launched {name} {launched[name]} times, '
-                                       f'not {n}')
-        check(launched['window_attention_bwd'] == launched['masked_attention_bwd'] == 0,
+            check(ran[name] + graph[name] == n, f'request {i} launched {name} {ran[name]} times '
+                                                f'and replayed {graph[name]}, not {n} in all')
+        check(ran['window_attention_bwd'] == ran['masked_attention_bwd'] == 0,
               'serving launched a backward kernel')
         check_result(res, SERVING_BATCH, (SERVING_HW, SERVING_HW), cfg.num_queries)
+        if i == 0:
+            for k in eager:
+                check(torch.equal(res[k], eager[k]), f'the replayed request\'s {k} differs '
+                                                     f'from the eager request\'s')
         log(f'request {i}: {1e3 * latencies[-1]:.1f} ms, {int(res["valid"].sum())} segments kept')
-    launches = counts()
+    # launches on the device: the requests' own and their replays' captured ones
+    n_replays = trace.counter('serve.graph.replays') - replays
+    launches = {k: n + n_replays * graph[k] for k, n in counts().items()}
     log(f'serving swin-large {SERVING_HW}x{SERVING_HW} b{SERVING_BATCH} bf16: '
-        f'{REQUESTS * SERVING_BATCH / sum(latencies):.3f} img/s over {REQUESTS} requests, '
+        f'{REQUESTS * SERVING_BATCH / sum(latencies):.3f} img/s over {REQUESTS} requests '
+        f'({n_replays} replays; the first\'s results the eager request\'s bits), '
         f'median latency {1e3 * statistics.median(latencies):.1f} ms, '
-        f'peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches {launches}')
+        f'peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches {launches} '
+        f'({counts()} made by the requests, the rest by their replays)')
 
     _decoder_masked_checks(serve, requests[1], per_request['masked_attention_fwd'], 'swin-large')
     del model, serve, requests
@@ -2133,7 +2195,8 @@ def phase_export(dev: torch.device, root: str) -> dict:
     fresh ``python3`` that cannot import the port's ``models``, serving
     ``EXPORT_REQUESTS`` requests with each request's launches exactly those
     of ``EXPORT_ARCHS``; the same requests through the program loaded here
-    and through the live ``make_serving_fn``: the same segmentation, ids,
+    and through the live ``make_serving_fn`` (one capture, every request
+    replayed): the same segmentation, ids,
     labels and valid flags, scores within ``EXPORT_SCORE_TOL``; the loaded
     program's launches over the requests (counts set to 0 just before);
     then the median ms per request, img/s and peak memory of both, timed
@@ -2180,7 +2243,11 @@ def phase_export(dev: torch.device, root: str) -> dict:
         loaded, manifest = load_serving(out_dir)
         load_s = time.perf_counter() - t0
         requests = _export_requests(dev)
+        captures, replays = (trace.counter(f'serve.graph.{n}') for n in ('captures', 'replays'))
         want = [live(raw) for raw in requests]
+        check(trace.counter('serve.graph.captures') == captures + 1
+              and trace.counter('serve.graph.replays') == replays + EXPORT_REQUESTS,
+              f'{arch}: the live function did not capture once and replay every request')
         reset_counts()
         got = [loaded(raw) for raw in requests]
         torch.cuda.synchronize()
@@ -2227,7 +2294,7 @@ def phase_export(dev: torch.device, root: str) -> dict:
             f'cannot import the port\'s models) {alone["load_s"]:.1f} s to load, '
             f'{alone_s:.1f} s for the process; launches a request {per_request}, here over '
             f'{EXPORT_REQUESTS} requests {launches}; outputs equal to the live function\'s '
-            f'(segmentation, ids, labels, valid), scores max abs diff {max(errs):.3e}; '
+            f'(segmentation, ids, labels, valid; its encoder graph replayed every request), scores max abs diff {max(errs):.3e}; '
             f'segments kept {kept}; card {card}')
         for name, ts in times.items():
             log(f'  {name}: median {1e3 * statistics.median(ts):.1f} ms a request '

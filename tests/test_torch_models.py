@@ -321,6 +321,27 @@ def test_full_forward_matches_jax(tiny):
         np.testing.assert_allclose(_np(g), np.asarray(w), atol=5e-4)
 
 
+def test_encode_then_decode_gives_the_forward_bits(tiny):
+    """``encode`` and ``decode``, called apart, give ``forward``'s bits."""
+    _, _, model = tiny
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal((2, 3, *IMAGE_HW))
+                         .astype(np.float32))
+    with torch.no_grad():
+        whole = model(x)
+        mask_features, multi_scale = model.encode(x)
+        halves = model.decode(mask_features, multi_scale)
+    assert mask_features.shape == (2, IMAGE_HW[0] // 4, IMAGE_HW[1] // 4, 32)
+    assert len(multi_scale) == 3
+
+    def flat(out):
+        return [out.class_queries_logits, out.masks_queries_logits,
+                *out.aux_class_queries_logits, *out.aux_masks_queries_logits]
+
+    assert len(flat(whole)) == len(flat(halves)) == 8
+    for a, b in zip(flat(whole), flat(halves)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize('route', ['bf16-params', 'autocast'])
 def test_msda_inputs_match_jax_at_bf16(monkeypatch, route):
     """One encoder layer's deformable attention at bf16 in both stacks, with

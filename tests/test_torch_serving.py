@@ -5,6 +5,7 @@ float32, on the CPU; and the port's independence from JAX."""
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ from weed_instance_segmentation_tpu.engine.model_utils import init_params
 from weed_instance_segmentation_tpu.models import configuration as jax_configuration
 from weed_instance_segmentation_tpu.models.mask2former import Mask2Former as JaxMask2Former
 
+from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.engine.export import make_serving_fn
 from weed_instance_segmentation_tpu_torch.engine.model_utils import build_model
 from weed_instance_segmentation_tpu_torch.models.configuration import Mask2FormerConfig
@@ -82,6 +84,23 @@ def test_micro_batch_and_lean_response(models):
             assert torch.equal(micro[key], full[key]), key
     with pytest.raises(ValueError, match='divisible'):
         make_serving_fn(model, out_hw=OUT_HW, micro_batch=3)(raw)
+
+
+def test_cpu_serving_never_captures(models):
+    """On the CPU every request runs eagerly: no capture, no replay, and
+    each request records the encoder's own spans."""
+    _, _, model = models
+    before = trace.counters('serve.graph.')
+    serve = make_serving_fn(model, out_hw=OUT_HW, threshold=THRESHOLD, micro_batch=2)
+    t0 = time.perf_counter()
+    for seed in range(3):
+        serve(torch.from_numpy(_raw(seed, batch=4)))
+    names = [s.name for s in trace.spans(t0, time.perf_counter())]
+    assert trace.counters('serve.graph.') == before
+    assert trace.counter('serve.graph.captures') == trace.counter('serve.graph.replays') == 0
+    assert 'serve.graph_replay' not in names
+    assert names.count('serve.request') == 3
+    assert names.count('model.backbone') == names.count('model.decoder') == 6
 
 
 def test_build_model_is_seeded():

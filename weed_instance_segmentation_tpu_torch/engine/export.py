@@ -2,12 +2,13 @@
 arrays out.
 
 Port of ``weed_instance_segmentation_tpu/engine/export.py``. The serving
-pipeline (:class:`ServingModule`, which :func:`make_serving_fn` calls
-eagerly)::
+pipeline (:class:`ServingModule`, which :func:`make_serving_fn` runs in
+its two halves)::
 
     uint8 image batch (B, H_in, W_in, 3) on the model's device
       → fused pre-process (processing/fused.py)
-      → Mask2Former forward
+      → Mask2Former encoder half (backbone, pixel decoder)
+      → Mask2Former decoder half (masked-attention decoder, class head)
       → instance post-process (processing/postprocess.py), in float32
       → fixed-shape result arrays (segmentation map, labels, scores, …)
 
@@ -20,9 +21,39 @@ program launches the same kernels as the live function, and their launch
 counters count them. Shapes are static (one artifact per batch and
 resolution), and one artifact serves the device it was exported on.
 
+On a CUDA device :func:`make_serving_fn` replays the request's encoder
+half as one CUDA graph per input shape (a micro-batch's, where it splits
+the request): the pre-process, the NHWC cast, the backbone and the pixel
+decoder (``ServingModule.encode``). A shape's first request warms the
+encoder up on a side stream (which builds the kernels and the device
+constants) and captures the graph on that stream; it and every later
+request of the shape copy their images into the graph's static input and
+replay it. Each graph keeps a private memory pool of the encoder's
+activations for as long as the serving function lives. The
+masked-attention decoder, the class head and the post-process
+(``ServingModule.decode``) run eagerly on the graph's static outputs, and
+return fresh tensors, which a later replay never overwrites. A request runs
+eagerly throughout, with neither capture nor replay, where its images are
+on the CPU, where the model is in training mode, or while the autograd
+profiler is enabled (a replay would hide each operator's name and shapes
+from it). On a CUDA tensor outside those cases a capture that fails raises.
+The graph holds the model's parameters by address: it serves the weights
+the function was made with, and updates copied into them in place. The
+serving function's ``graphs`` maps each (shape, dtype, device) to its
+graph; calling one replays it outside the serving function, so a profiler
+can see the replayed kernels.
+
 Each call of a serving function is the span ``serve.request``
-(``engine/trace.py``; its id the call's index); inside it the live
-function's ``serve.preprocess``, the model's spans and ``serve.postprocess``.
+(``engine/trace.py``; its id the call's index). Inside it the live
+function records ``serve.preprocess``, ``model.backbone`` and
+``model.pixel_decoder`` where the encoder half runs eagerly (and in a
+capture's warm-up and capture), ``serve.graph_replay`` around the copy in
+and the replay, then ``model.decoder`` and ``serve.postprocess``. The
+counters ``serve.graph.captures`` and ``serve.graph.replays`` count
+captures and replays. A kernel's ``wistpu.<op>.launches`` counts only the
+launches made where it runs; the launches a capture records count once,
+under ``wistpu.<op>.captured`` (``ops/cuda_build.py::count_launch``), and
+each replay makes them again.
 
 Artifact layout under ``<out_dir>/``:
     serving.pt2    — ``torch.export.save`` of the program, weights included
@@ -50,6 +81,7 @@ import os
 from typing import Callable
 
 import torch
+from torch.autograd import profiler as _profiler
 
 from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.processing.fused import fused_preprocess
@@ -82,9 +114,17 @@ class ServingModule(torch.nn.Module):
         self.emit_masks = emit_masks
 
     def forward(self, raw: torch.Tensor) -> dict:
+        return self.decode(*self.encode(raw))
+
+    def encode(self, raw: torch.Tensor) -> tuple[torch.Tensor, list]:
+        """The encoder half: the pre-process and ``model.encode``."""
         with trace.span('serve.preprocess'):
             pixel_values, _ = fused_preprocess(raw, self.out_hw, self.out_hw)
-        out = self.model(pixel_values)
+        return self.model.encode(pixel_values)
+
+    def decode(self, mask_features: torch.Tensor, multi_scale: list) -> dict:
+        """The decoder half: ``model.decode`` and the post-process."""
+        out = self.model.decode(mask_features, multi_scale)
         with trace.span('serve.postprocess'):
             res = post_process_instance_arrays(
                 out.class_queries_logits.float(), out.masks_queries_logits.float(),
@@ -95,13 +135,44 @@ class ServingModule(torch.nn.Module):
         return res
 
 
+class _EncoderGraph:
+    """``encode`` of one input shape as a CUDA graph: its static input, and
+    the static outputs that each replay rewrites."""
+
+    def __init__(self, encode: Callable, raw: torch.Tensor):
+        """Warm ``encode`` up on ``raw`` on a side stream, then capture it on
+        that stream."""
+        current = torch.cuda.current_stream(raw.device)
+        self.input = raw.clone()
+        stream = torch.cuda.Stream(raw.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            encode(self.input)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.output = encode(self.input)
+        current.wait_stream(stream)
+        trace.count('serve.graph.captures')
+
+    @torch.inference_mode()
+    def __call__(self, raw: torch.Tensor) -> tuple[torch.Tensor, list]:
+        """Copy ``raw`` into the static input and replay: the static
+        outputs then hold ``encode(raw)``."""
+        self.input.copy_(raw)
+        self.graph.replay()
+        trace.count('serve.graph.replays')
+        return self.output
+
+
 def make_serving_fn(model: torch.nn.Module, *, out_hw: tuple[int, int],
                     target_size: tuple[int, int] | None = None,
                     threshold: float = 0.5,
                     micro_batch: int = 0,
                     emit_masks: bool = True) -> Callable[[torch.Tensor], dict]:
     """(raw uint8 (B, H_in, W_in, 3)) → dict of InstanceSegmentationResult
-    arrays, batch-leading, through :class:`ServingModule` in inference mode.
+    arrays, batch-leading, through :class:`ServingModule` in inference mode;
+    on a CUDA device its encoder half replays as a CUDA graph (the module's
+    docstring says when).
 
     ``micro_batch`` > 0 runs the request in sub-batches of that size, one
     after another, which caps activation memory at the sub-batch; the
@@ -111,6 +182,19 @@ def make_serving_fn(model: torch.nn.Module, *, out_hw: tuple[int, int],
                         emit_masks=emit_masks)
     device = next(model.parameters()).device
     requests = itertools.count()
+    graphs = {}  # (shape, dtype, device) → _EncoderGraph
+
+    def encoded(raw: torch.Tensor) -> tuple[torch.Tensor, list]:
+        if raw.device.type != 'cuda' or model.training or _profiler._is_profiler_enabled:
+            return one.encode(raw)
+        key = (tuple(raw.shape), raw.dtype, raw.device)
+        if key not in graphs:
+            graphs[key] = _EncoderGraph(one.encode, raw)
+        with trace.span('serve.graph_replay'):
+            return graphs[key](raw)
+
+    def run(raw: torch.Tensor) -> dict:
+        return one.decode(*encoded(raw))
 
     @torch.inference_mode()
     def serve(raw: torch.Tensor) -> dict:
@@ -119,12 +203,13 @@ def make_serving_fn(model: torch.nn.Module, *, out_hw: tuple[int, int],
         with trace.span('serve.request', id=next(requests)):
             b = raw.shape[0]
             if not micro_batch or b <= micro_batch:
-                return one(raw)
+                return run(raw)
             if b % micro_batch:
                 raise ValueError(f'serving batch {b} not divisible by micro_batch {micro_batch}')
-            parts = [one(chunk) for chunk in raw.split(micro_batch)]
+            parts = [run(chunk) for chunk in raw.split(micro_batch)]
             return {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
 
+    serve.graphs = graphs
     return serve
 
 

@@ -17,7 +17,8 @@ counters:
   even then, and under ``torch.export`` none reaches the graph). A span
   given a CUDA ``device`` also records a pair of timing events on its
   edges, read only when asked (:func:`device_ms`), never waited for.
-- :func:`count` is the one counter, :func:`counter` reads it.
+- :func:`count` is the one counter, :func:`counter` reads it and
+  :func:`counters` every counter of a prefix.
 - :func:`totals` sums each name's spans since the start of the process
   (count and seconds); it drops nothing.
 - Stamps are ``time.perf_counter_ns``, the clock a caller times a window
@@ -169,6 +170,15 @@ class Recorder:
     def counter(self, name: str) -> int:
         return sum(t.counts.get(name, 0) for t in list(self.threads))
 
+    def counters(self, prefix: str = '') -> dict:
+        """{name: count} of every counter whose name starts with ``prefix``."""
+        out = {}
+        for t in list(self.threads):
+            for name, n in list(t.counts.items()):
+                if name.startswith(prefix):
+                    out[name] = out.get(name, 0) + n
+        return out
+
     def totals(self) -> dict:
         """{name: (spans, seconds)} of every span recorded so far."""
         out = {}
@@ -193,6 +203,7 @@ RECORDER = Recorder()
 span = RECORDER.span
 count = RECORDER.count
 counter = RECORDER.counter
+counters = RECORDER.counters
 totals = RECORDER.totals
 dropped = RECORDER.dropped
 spans = RECORDER.spans

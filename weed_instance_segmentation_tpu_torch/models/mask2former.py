@@ -15,7 +15,9 @@ Swin blocks and deformable encoder layers, 'encoder' = encoder layers only,
 False = store everything (the ResNet backbone takes none, as in the JAX
 package). The forward's three stages are the spans ``model.backbone``,
 ``model.pixel_decoder`` and ``model.decoder`` (the heads included;
-``engine/trace.py``).
+``engine/trace.py``); :meth:`Mask2Former.encode` runs the first two and
+:meth:`Mask2Former.decode` the third, so a caller can run the halves apart
+(``engine/export.py`` replays the first as a CUDA graph).
 """
 
 from __future__ import annotations
@@ -73,12 +75,23 @@ class Mask2Former(nn.Module):
         ``generator`` draws the backbone's drop-path masks in training mode;
         ``shard`` (a data rank's (index, count)) keeps the rank's part of
         the global batch's draw."""
+        return self.decode(*self.encode(pixel_values, generator, shard))
+
+    def encode(self, pixel_values: torch.Tensor, generator: torch.Generator | None = None,
+               shard: tuple[int, int] | None = None) -> tuple[torch.Tensor, list]:
+        """The encoder half of :meth:`forward`: the backbone and the pixel
+        decoder → (mask_features (B, H/4, W/4, C), multi_scale: NHWC maps,
+        stride 32, 16, 8)."""
         dtype = self.class_predictor.weight.dtype
         x = pixel_values.permute(0, 2, 3, 1).to(dtype)  # NHWC
         with trace.span('model.backbone'):
             features = self.backbone(x, generator, shard)
         with trace.span('model.pixel_decoder'):
-            mask_features, multi_scale = self.pixel_decoder(features)
+            return self.pixel_decoder(features)
+
+    def decode(self, mask_features: torch.Tensor, multi_scale: list) -> Mask2FormerOutput:
+        """The decoder half of :meth:`forward`: the masked-attention decoder
+        and the class head on :meth:`encode`'s outputs."""
         with trace.span('model.decoder'):
             intermediate, mask_logits = self.transformer_module(multi_scale, mask_features)
             class_logits = tuple(self.class_predictor(h) for h in intermediate)

@@ -9,8 +9,9 @@ Sources do not include PyTorch's headers, which keeps a build to seconds.
 
 A failed build raises; there is no fallback. The wrappers bind an entry point
 with :func:`entry_point`, call it with :func:`launch` (which raises on a CUDA
-error), check attention inputs with :func:`check_attention_inputs` and
-:func:`check_aligned` and size their grids with :func:`sm_count`.
+error), count each call with :func:`count_launch`, check attention inputs
+with :func:`check_attention_inputs` and :func:`check_aligned` and size their
+grids with :func:`sm_count`.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ import subprocess
 import time
 
 import torch
+
+from weed_instance_segmentation_tpu_torch.engine import trace
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, 'csrc')
@@ -108,6 +111,20 @@ def launch(fn, device: torch.device, what: str, *args) -> None:
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f'{what} launch failed: CUDA error {err}')
+
+
+def captured(name: str) -> str:
+    """The twin of a launch counter ``wistpu.<op>.launches``:
+    ``wistpu.<op>.captured``."""
+    return name.removesuffix('.launches') + '.captured'
+
+
+def count_launch(name: str) -> None:
+    """Count one call of a kernel under the counter ``name`` where the
+    kernel runs, or under :func:`captured` of it where the current stream is
+    capturing a CUDA graph: the capture only records the launch, and every
+    replay of the graph makes it (``engine/export.py``)."""
+    trace.count(captured(name) if torch.cuda.is_current_stream_capturing() else name)
 
 
 @functools.cache

@@ -51,7 +51,7 @@ from __future__ import annotations
 import torch
 
 from weed_instance_segmentation_tpu_torch.engine import trace
-from weed_instance_segmentation_tpu_torch.ops.cuda_build import entry_point, launch
+from weed_instance_segmentation_tpu_torch.ops.cuda_build import count_launch, entry_point, launch
 
 # the span of the value gradient's sums (a trace's device time for them is
 # the work launched inside its range)
@@ -199,7 +199,7 @@ def _forward_cuda(value, spatial_shapes, sampling_locations, attention_weights):
            sampling_locations.data_ptr(), attention_weights.data_ptr(), out.data_ptr(), b,
            l_total, q, heads, head_dim, levels, points, *dims, int(value.dtype == torch.bfloat16),
            int(sampling_locations.dtype == torch.bfloat16))
-    trace.count(LAUNCHES)
+    count_launch(LAUNCHES)
     return out
 
 

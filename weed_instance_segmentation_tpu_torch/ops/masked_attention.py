@@ -32,9 +32,8 @@ from __future__ import annotations
 
 import torch
 
-from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.ops.cuda_build import (
-    check_aligned, check_attention_inputs, entry_point, launch, sm_count,
+    check_aligned, check_attention_inputs, count_launch, entry_point, launch, sm_count,
 )
 
 _LIBRARY = 'masked_attention'
@@ -132,7 +131,7 @@ def _forward_cuda(q, k, v, mask):
            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
            lse.data_ptr(), None if part is None else part.data_ptr(), b, heads, nq, ns,
            head_dim, int(bf16), chunks)
-    trace.count(LAUNCHES)
+    count_launch(LAUNCHES)
     return out, lse
 
 
@@ -166,7 +165,7 @@ def _backward_cuda(q, k, v, out, lse, mask, grad_out):
            lse.data_ptr(), mask.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
            delta.data_ptr(), dq_part.data_ptr() if bf16 else None, b, heads, nq, ns,
            head_dim, int(bf16), chunks)
-    trace.count(BACKWARD_LAUNCHES)
+    count_launch(BACKWARD_LAUNCHES)
     return dq, dk, dv
 
 

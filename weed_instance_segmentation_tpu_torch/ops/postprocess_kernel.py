@@ -31,9 +31,8 @@ import functools
 import numpy as np
 import torch
 
-from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.ops.constants import device_constant
-from weed_instance_segmentation_tpu_torch.ops.cuda_build import entry_point, launch
+from weed_instance_segmentation_tpu_torch.ops.cuda_build import count_launch, entry_point, launch
 from weed_instance_segmentation_tpu_torch.ops.resize import (
     _bilinear_weights, bilinear_resize_matrix,
 )
@@ -215,6 +214,6 @@ def _launch(mask_logits: torch.Tensor, score_hw: tuple[int, int], band_rows: int
            cnt_part.data_ptr(), sig_sum.data_ptr(), pos_cnt.data_ptr(), bins.data_ptr(),
            b * q, hm, wm, sh, sw, band_rows, int(tile_stores(sw)), v_off, y_off, smem,
            block_threads(sw, warps))
-    trace.count(LAUNCHES)
+    count_launch(LAUNCHES)
     return sig_sum, pos_cnt, bins
 

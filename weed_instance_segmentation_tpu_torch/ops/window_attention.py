@@ -37,9 +37,8 @@ import math
 
 import torch
 
-from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.ops.cuda_build import (
-    check_aligned, check_attention_inputs, entry_point, launch, sm_count,
+    check_aligned, check_attention_inputs, count_launch, entry_point, launch, sm_count,
 )
 
 _LIBRARY = 'window_attention'
@@ -157,7 +156,7 @@ def _forward_cuda(q, k, v, rel_bias, attn_mask):
            None if attn_mask is None else attn_mask.data_ptr(),
            None if mask_used is None else mask_used.data_ptr(), out.data_ptr(),
            lse.data_ptr(), nw, heads, tokens, head_dim, n_img, int(q.dtype == torch.bfloat16))
-    trace.count(LAUNCHES)
+    count_launch(LAUNCHES)
     return out, lse
 
 
@@ -194,7 +193,7 @@ def _backward_cuda(q, k, v, out, lse, rel_bias, attn_mask, grad_out):
            None if mask_used is None else mask_used.data_ptr(), dq.data_ptr(),
            dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), part.data_ptr(), nw, heads,
            tokens, head_dim, n_img, int(q.dtype == torch.bfloat16), runs)
-    trace.count(BACKWARD_LAUNCHES)
+    count_launch(BACKWARD_LAUNCHES)
     return dq, dk, dv, dbias
 
 
