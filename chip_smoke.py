@@ -142,6 +142,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from bench_torch import roofline
+from bench_torch.tracing import Slice, capture
 from weed_instance_segmentation_tpu_torch import config
 from weed_instance_segmentation_tpu_torch.datasets.crop_weed import definitions as crop_weed
 from weed_instance_segmentation_tpu_torch.datasets.pheno_bench import definitions as pheno_bench
@@ -195,17 +197,25 @@ from weed_instance_segmentation_tpu_torch.processing.postprocess import (
     SCORE_RESOLUTION, class_probabilities, post_process_instance_arrays,
 )
 
-LIBRARIES = ('postprocess_stats', 'window_attention', 'masked_attention', 'msda')
-CSRC = 'weed_instance_segmentation_tpu_torch/csrc/'
-KERNELS = {  # name → (source, the TPU kernel it replaces)
-    'fused_upsample_stats': (CSRC + 'postprocess_stats.cu',
-                             'weed_instance_segmentation_tpu/ops/postprocess_kernel.py:88'),
-    'window_attention_fwd': (CSRC + 'window_attention.cu', 'tools/ab_window_attn.py:52'),
-    'window_attention_bwd': (CSRC + 'window_attention.cu', 'tools/ab_window_attn.py:52'),
-    'masked_attention_fwd': (CSRC + 'masked_attention.cu', 'tools/ab_masked_attn.py:71'),
-    'masked_attention_bwd': (CSRC + 'masked_attention.cu', 'tools/ab_masked_attn.py:71'),
-    'msda_fwd': (CSRC + 'msda.cu', 'none: the JAX package samples with XLA '
-                                   '(weed_instance_segmentation_tpu/ops/msda_select.py)'),
+# the ops modules of the hand-written kernels: each names its library
+# (csrc/<library>.cu) and its kernels' launch counters (engine/trace.py),
+# 'wistpu.<kernel>.launches', forward and backward
+KERNEL_OPS = (postprocess_kernel_ops, window_attention_ops, masked_attention_ops,
+              deformable_attention)
+LIBRARIES = tuple(op._LIBRARY for op in KERNEL_OPS)
+_OWNED = [(counter.removeprefix('wistpu.').removesuffix('.launches'), counter, op._LIBRARY)
+          for op in KERNEL_OPS
+          for counter in (op.LAUNCHES, getattr(op, 'BACKWARD_LAUNCHES', None)) if counter]
+LAUNCH_COUNTERS = {kernel: counter for kernel, counter, _ in _OWNED}
+KERNEL_LIBRARY = {kernel: library for kernel, _, library in _OWNED}
+KERNELS = {  # name → the TPU kernel it replaces
+    'fused_upsample_stats': 'weed_instance_segmentation_tpu/ops/postprocess_kernel.py:88',
+    'window_attention_fwd': 'tools/ab_window_attn.py:52',
+    'window_attention_bwd': 'tools/ab_window_attn.py:52',
+    'masked_attention_fwd': 'tools/ab_masked_attn.py:71',
+    'masked_attention_bwd': 'tools/ab_masked_attn.py:71',
+    'msda_fwd': 'none: the JAX package samples with XLA '
+                '(weed_instance_segmentation_tpu/ops/msda_select.py)',
 }
 SERVING_BATCH, SERVING_IN, SERVING_HW, REQUESTS = 4, 1024, 800, 3
 TRAIN_BATCH, TRAIN_HW, TRAIN_INSTANCES, TRAIN_LABELS = 2, 800, 10, 5
@@ -214,9 +224,6 @@ STEP_RANGES = ('forward', 'criterion', 'backward', 'optimizer')  # engine/steps.
 EVAL_IMAGES, EVAL_BATCH, EVAL_ORIGINAL, EVAL_INSTANCES = 8, 2, 1024, 10
 EVAL_MODEL_ID = 'mask2former_fine_tuned/latest/best_model/'
 TIMED_RUNS = 25
-# H100 SXM published peaks (dense): HBM bytes/s and FLOP/s by input type
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
 def log(msg: str) -> None:
@@ -257,6 +264,16 @@ def timed_in_turns(fns: dict, runs: int = TIMED_RUNS) -> dict:
     return {name: statistics.median(ts) for name, ts in times.items()}
 
 
+def profiled(prof) -> Slice:
+    """The parsed trace of a stopped ``torch.profiler`` run
+    (``bench_torch/tracing.py``)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'trace.json')
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return Slice(json.load(f)['traceEvents'], 0.0, 1)
+
+
 def device_split(fn, runs: int = 10, attempts: int = 3) -> collections.Counter:
     """Device-busy ms per call of ``fn`` by kernel (copies and fills
     included), from a ``torch.profiler`` trace of ``runs`` calls. Unlike
@@ -270,15 +287,9 @@ def device_split(fn, runs: int = 10, attempts: int = 3) -> collections.Counter:
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, 'trace.json')
-            prof.export_chrome_trace(path)
-            with open(path) as f:
-                events = json.load(f)['traceEvents']
         split = collections.Counter()
-        for e in events:
-            if e.get('ph') == 'X' and e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset'):
-                split[e['name']] += e['dur'] / 1e3 / runs
+        for _, dur, name, *_ in profiled(prof).device:
+            split[name] += dur / 1e3 / runs
         if split:
             return split
         log(f'  (profiler trace {attempt + 1} held no device events; tracing again)')
@@ -290,23 +301,16 @@ def device_ms(fn, runs: int = 10) -> float:
     return sum(device_split(fn, runs).values())
 
 
-def bound(bytes_moved: float, flops: float, dtype: torch.dtype) -> dict:
-    """The least time the card could take: bytes over the HBM rate or
-    operations over the peak for the input type, whichever is larger."""
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return {'bound_ms': 1e3 * max(t_bytes, t_ops),
-            'bound_by': 'bytes' if t_bytes >= t_ops else 'operations'}
+def roofline_bound(work: tuple, dtype: str) -> dict:
+    """The least ms the card could take for ``work`` (bytes, FLOPs in
+    ``dtype``; ``bench_torch/roofline.py``), and which of the two sets it."""
+    bytes_moved, flops = work
+    by_bytes = bytes_moved / roofline.HBM_BYTES_PER_S >= flops / roofline.PEAK_FLOPS[dtype]
+    return {'bound_ms': 1e3 * roofline.bound_s(bytes_moved, flops, dtype),
+            'bound_by': 'bytes' if by_bytes else 'operations'}
 
 
-# each kernel's launch counter (engine/trace.py), and its reading at the
-# last reset_counts()
-LAUNCH_COUNTERS = {'fused_upsample_stats': postprocess_kernel_ops.LAUNCHES,
-                   'window_attention_fwd': window_attention_ops.LAUNCHES,
-                   'window_attention_bwd': window_attention_ops.BACKWARD_LAUNCHES,
-                   'masked_attention_fwd': masked_attention_ops.LAUNCHES,
-                   'masked_attention_bwd': masked_attention_ops.BACKWARD_LAUNCHES,
-                   'msda_fwd': deformable_attention.LAUNCHES}
-_counted = dict.fromkeys(LAUNCH_COUNTERS, 0)
+_counted = dict.fromkeys(LAUNCH_COUNTERS, 0)  # each launch counter at the last reset_counts()
 
 
 def reset_counts() -> None:
@@ -327,17 +331,9 @@ def replayed_kernels(replay, raw: torch.Tensor) -> collections.Counter:
     """The device kernels one call of ``replay(raw)`` runs, by function name,
     from a profiler trace (a serving function's graph called directly: under
     a profiler the serving function itself runs eagerly)."""
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        replay(raw)
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, 'replay.json')
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)['traceEvents']
-    return collections.Counter(kernel_name(e['name']) for e in events
-                               if e.get('ph') == 'X' and e.get('cat') == 'kernel')
+    ran = capture(lambda: replay(raw), 1, torch.cuda.synchronize).device
+    return collections.Counter(kernel_name(name) for _, _, name, *_ in ran
+                               if not name.startswith('Memcpy') and not name.startswith('Memset'))
 
 
 def check_postprocess(logits: torch.Tensor, outputs: tuple) -> tuple[int, float]:
@@ -369,13 +365,6 @@ def postprocess_logits(dev: torch.device) -> torch.Tensor:
                        device=dev) * 2
 
 
-def postprocess_bytes(logits: torch.Tensor) -> int:
-    """Bytes the post-process must move: the logits read once, the bins and
-    the two sums written once."""
-    b, q = logits.shape[:2]
-    return logits.numel() * 4 + b * q * SCORE_RESOLUTION[0] * SCORE_RESOLUTION[1] + 2 * b * q * 4
-
-
 def phase_postprocess_kernel(dev: torch.device) -> dict:
     """Kernel vs plain version at the serving shape, the same bits from two
     calls, and each launch's device time against the byte bound."""
@@ -393,10 +382,8 @@ def phase_postprocess_kernel(dev: torch.device) -> dict:
 
     t = timed_in_turns({'plain': lambda: fused_upsample_stats_plain(logits, SCORE_RESOLUTION),
                         'kernel': lambda: fused_upsample_stats(logits, SCORE_RESOLUTION)})
-    out_px = logits.shape[0] * logits.shape[1] * SCORE_RESOLUTION[0] * SCORE_RESOLUTION[1]
-    moved = postprocess_bytes(logits)
-    # 4 taps x 2 flops per output pixel, plus the sigmoid and the sums
-    bound_ = bound(moved, 12 * out_px, torch.float32)
+    work = roofline.postprocess(*logits.shape, SCORE_RESOLUTION)
+    moved, bound_ = work[0], roofline_bound(work, 'float32')
     split = device_split(lambda: fused_upsample_stats(logits, SCORE_RESOLUTION))
     dev_ms = sum(split.values())
     plain_dev_ms = device_ms(lambda: fused_upsample_stats_plain(logits, SCORE_RESOLUTION))
@@ -532,14 +519,9 @@ def window_inputs(dev: torch.device, images: int, hp: int, heads: int) -> tuple:
 def _window_bounds(q: torch.Tensor, mask: torch.Tensor) -> dict:
     """The forward's and the backward's bound for bf16 q/k/v of q's shape,
     with the shift mask."""
-    nw, heads, t, d = q.shape
-    qkv_bytes = nw * heads * t * d * 2
-    const_bytes = (heads + mask.shape[0]) * t * t * 4
-    lse_bytes = nw * heads * t * 4
-    pair_flops = nw * heads * t * t * d
-    return {'fwd': bound(4 * qkv_bytes + const_bytes + lse_bytes, 4 * pair_flops, torch.bfloat16),
-            'bwd': bound(8 * qkv_bytes + const_bytes + lse_bytes + heads * t * t * 4,
-                         10 * pair_flops, torch.bfloat16)}
+    return {phase: roofline_bound(roofline.window_attention(
+        *q.shape, 'bfloat16', True, mask.shape[0], backward=phase == 'bwd'), 'bfloat16')
+            for phase in ('fwd', 'bwd')}
 
 
 def _window_backward_repeats(q, k, v, bias, mask, dtype) -> bool:
@@ -639,14 +621,9 @@ def phase_masked_attention(dev: torch.device) -> dict:
         bias = torch.zeros(mask.shape, dtype=torch.bfloat16, device=dev).masked_fill_(mask, -1e9)
         t_ms = _time_fwd_bwd(masked_attention, masked_attention_plain, _sdpa(1.0),
                              [qb, kb, vb], (mask,), (bias,))
-        q_bytes, kv_bytes = b * heads * nq * d * 2, b * heads * s * d * 2
-        mask_bytes, lse_bytes = b * nq * s, b * heads * nq * 4
-        pair_flops = b * heads * nq * s * d
-        fwd_bound = bound(2 * q_bytes + 2 * kv_bytes + mask_bytes + lse_bytes, 4 * pair_flops,
-                          torch.bfloat16)
-        bwd_bound = bound(4 * q_bytes + 4 * kv_bytes + mask_bytes + lse_bytes, 10 * pair_flops,
-                          torch.bfloat16)
-        for i, (phase, b_) in enumerate((('fwd', fwd_bound), ('bwd', bwd_bound))):
+        for i, phase in enumerate(('fwd', 'bwd')):
+            b_ = roofline_bound(roofline.masked_attention(b, heads, nq, s, d, 'bfloat16',
+                                                          backward=phase == 'bwd'), 'bfloat16')
             log(_timing_line(f'{phase} bf16 S={s}', t_ms[phase], b_))
             levels[phase][s] = _summary(t_ms[phase], b_, errs[torch.bfloat16][i])
     # the summary line reports the largest level, and every level under by_s
@@ -668,9 +645,7 @@ def _masked_forward_serving(dev: torch.device) -> dict:
            'kernel': lambda: masked_attention(q, k, v, mask),
            'library': lambda: _sdpa(1.0)(q, k, v, bias)}
     t = {**timed_in_turns(fns), 'device': {name: device_ms(fn) for name, fn in fns.items()}}
-    q_bytes, kv_bytes = b * heads * nq * d * 2, b * heads * s * d * 2
-    bound_ = bound(2 * q_bytes + 2 * kv_bytes + b * nq * s + b * heads * nq * 4,
-                   4 * b * heads * nq * s * d, torch.bfloat16)
+    bound_ = roofline_bound(roofline.masked_attention(b, heads, nq, s, d, 'bfloat16'), 'bfloat16')
     log(_timing_line(f'fwd bf16 B={b} S={s}', t, bound_))
     return _summary(t, bound_, err)
 
@@ -719,11 +694,11 @@ def phase_msda_forward(dev: torch.device) -> dict:
                         'kernel': lambda: deformable_attention.msda(*args)})
     dev_ms = device_ms(lambda: deformable_attention.msda(*args))
     plain_dev_ms = device_ms(lambda: deformable_attention._msda_fused(*args))
-    # the value table, locations and weights read once, the output written
-    # once; a multiply and an add a tap and channel
-    moved = sum(x.numel() * x.element_size() for x in (value, locations, weights, first))
-    taps = weights.numel() * 4
-    bound_ = bound(moved, 2 * taps * MSDA_HEAD_DIM, torch.float32)
+    batch, rows, heads, d = value.shape
+    dtype, coord_dtype = (str(x.dtype).removeprefix('torch.') for x in (value, locations))
+    work = roofline.msda(batch, locations.shape[1], heads, len(MSDA_SHAPES), MSDA_POINTS, d, rows,
+                         dtype, coord_dtype)
+    moved, bound_, taps = work[0], roofline_bound(work, dtype), weights.numel() * 4
     log(f'MSDA forward kernel at serving b{SERVING_BATCH} {SERVING_HW}² (value '
         f'{tuple(value.shape)} bf16, {taps / 1e6:.2f} M taps of '
         f'{MSDA_HEAD_DIM * value.element_size()} bytes = '
@@ -920,29 +895,21 @@ def _unchanged(model, snapshot) -> bool:
     return all(torch.equal(p, s) for p, s in zip(model.parameters(), snapshot))
 
 
-def trace_split(trace: dict, range_names: tuple) -> tuple[dict, dict, collections.Counter]:
-    """From a profiler's Chrome trace: the device-busy ms of the work
-    launched in each of ``range_names``' ``record_function`` ranges (a
-    kernel, copy or fill counts in the innermost range whose host interval
-    holds its launch call; ``other`` if none does), the host ms spent in each
-    range, and the device ms by kernel name."""
-    events = [e for e in trace['traceEvents'] if e.get('ph') == 'X']
-    ranges = sorted((e['ts'], e['ts'] + e['dur'], e['name']) for e in events
-                    if e.get('cat') == 'user_annotation' and e['name'] in range_names)
-    launched_at = {e['args']['correlation']: e['ts'] for e in events
-                   if e.get('cat') in ('cuda_runtime', 'cuda_driver')
-                   and 'correlation' in e.get('args', {})}
+def trace_split(sl: Slice, range_names: tuple) -> tuple[dict, dict, collections.Counter]:
+    """From a parsed profiler trace: the device-busy ms of the work launched
+    in each of ``range_names``' ranges (a kernel, copy or fill counts in the
+    innermost range whose host interval holds its launch call; ``other`` if
+    none does), the host ms spent in each range, and the device ms by kernel
+    name."""
+    ranges = [(a, b, name) for a, b, name, *_ in sl.ranges if name in range_names]
     device_ms = dict.fromkeys(tuple(range_names) + ('other',), 0.0)
     by_kernel = collections.Counter()
-    for e in events:
-        if e.get('cat') not in ('kernel', 'gpu_memcpy', 'gpu_memset'):
-            continue
-        ts = launched_at.get(e.get('args', {}).get('correlation'))
+    for _, dur, kernel, ts, _ in sl.device:
         # ranges are sorted by start, so the last that holds the launch is the innermost
         name = next((n for a, b, n in reversed(ranges) if ts is not None and a <= ts <= b),
                     'other')
-        device_ms[name] += e['dur'] / 1e3
-        by_kernel[e['name']] += e['dur'] / 1e3
+        device_ms[name] += dur / 1e3
+        by_kernel[kernel] += dur / 1e3
     host_ms = {n: sum(b - a for a, b, m in ranges if m == n) / 1e3 for n in range_names}
     return device_ms, host_ms, by_kernel
 
@@ -1013,12 +980,9 @@ def phase_training(dev: torch.device, cache_dir: str) -> dict:
         step(batch)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
-    trace_path = os.path.join(cache_dir, 'trace.json')
-    prof.export_chrome_trace(trace_path)
-    with open(trace_path) as f:
-        trace = json.load(f)
-    device_ms, host_ms, by_kernel = trace_split(trace, STEP_RANGES)
-    value_grad_ms = trace_split(trace, (deformable_attention.VALUE_GRAD_RANGE,))[0]
+    sl = profiled(prof)
+    device_ms, host_ms, by_kernel = trace_split(sl, STEP_RANGES)
+    value_grad_ms = trace_split(sl, (deformable_attention.VALUE_GRAD_RANGE,))[0]
     busy = sum(device_ms.values())
     log(f'traced 2 micro-steps (one update): {wall:.1f} ms wall, {busy:.1f} ms device busy, '
         f'idle share {max(0.0, 1 - busy / wall):.3f}; the MSDA value-gradient sums '
@@ -1184,11 +1148,7 @@ def phase_eval(dev: torch.device, root: str) -> dict:
             _eval_run(forward, dataset, 0.0, dev)
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0)
-        trace_path = os.path.join(root, 'eval_trace.json')
-        prof.export_chrome_trace(trace_path)
-        with open(trace_path) as f:
-            device_ms, host_ms, _ = trace_split(json.load(f), metrics.EVAL_RANGES)
-        os.remove(trace_path)
+        device_ms, host_ms, _ = trace_split(profiled(prof), metrics.EVAL_RANGES)
         check(host_ms['IoU product'] > 0 and device_ms['IoU product'] > 0,
               'no IoU product on the device at threshold 0.0')
         host_ms['matching'] = (host_ms.pop('metric update') + host_ms.pop('metric compute')
@@ -1983,8 +1943,8 @@ def phase_tiny_eval(dev: torch.device, root: str) -> None:
     b = gts_np.reshape(20, -1).astype(np.float32)
     dev_a, dev_b = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
     product_ms = timed_in_turns({'product': lambda: dev_a @ dev_b.T}, runs=10)['product']
-    product_bound = bound((a.size + b.size) * 4 + 100 * 20 * 4, 2 * 100 * 20 * a.shape[1],
-                          torch.float32)
+    product_work = ((a.size + b.size) * 4 + 100 * 20 * 4, 2 * 100 * 20 * a.shape[1])
+    product_bound = roofline_bound(product_work, 'float32')
     log(f'mask_iou_matrix 100 x 1024² against 20 x 1024²: the same bits on the card and the '
         f'CPU; {1e3 * card_s:.1f} ms on the card with the host copies, {1e3 * cpu_s:.1f} ms on '
         f'the CPU; the f32 product alone {product_ms:.4f} ms on the card (bound '
@@ -2374,9 +2334,12 @@ def main() -> int:
 
     path = {'fused_upsample_stats': serving, 'msda_fwd': serving}
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, replaces in KERNELS.items():
         launches = path.get(name, training)[name]
-        kernels.append({'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
+        kernels.append({'name': name, 'route': 'cuda',
+                        'source': f'weed_instance_segmentation_tpu_torch/csrc/'
+                                  f'{KERNEL_LIBRARY[name]}.cu',
+                        'replaces': replaces,
                         'launches': launches,
                         'launches_by_path': {'serving': serving[name], 'training': training[name],
                                              'eval': evaluation[name],

@@ -20,9 +20,10 @@ import sys
 import torch
 
 import weed_instance_segmentation_tpu_torch.ops.postprocess_kernel as ops
+from bench_torch.roofline import HBM_BYTES_PER_S, postprocess
 from chip_smoke import (
-    HBM_BYTES_PER_S, SCORE_RESOLUTION, card_line, check_postprocess, device_split, kernel_name,
-    postprocess_bytes, postprocess_logits, timed_in_turns,
+    SCORE_RESOLUTION, card_line, check_postprocess, device_split, kernel_name, postprocess_logits,
+    timed_in_turns,
 )
 
 RUNS = 20
@@ -39,7 +40,7 @@ def profile(logits: torch.Tensor, band_rows: int, warps: int) -> str:
     check_postprocess(logits, call())
     split = device_split(call, RUNS)
     dev_ms = sum(split.values())
-    moved = postprocess_bytes(logits)
+    moved = postprocess(*logits.shape, SCORE_RESOLUTION)[0]
     event_ms = timed_in_turns({'kernel': call})['kernel']
     launches = '; '.join(f'{kernel_name(key)} {1e3 * ms:.2f} µs' for key, ms in split.most_common())
     return (f'band_rows={plan[0]} bands={plan[1]} span_rows={plan[2]} threads={threads} '

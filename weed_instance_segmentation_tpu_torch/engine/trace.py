@@ -23,12 +23,11 @@ counters:
   (count and seconds); it drops nothing.
 - Stamps are ``time.perf_counter_ns``, the clock a caller times a window
   with: :func:`spans` selects the spans inside such a window.
-- :func:`export_chrome` writes the ring as Chrome-trace events; on a
-  profile's time base (:class:`Clock`, measured while the profile runs)
-  they lie on the profiler's ranges, so every idle gap of a device trace
-  lies under the span the host was in. :func:`start_profile` /
-  :func:`stop_profile` take such a profile (``trace.json``) and write the
-  spans beside it (``spans.json``).
+- :func:`start_profile` / :func:`stop_profile` take a profile and write
+  it as one Chrome trace (``trace.json``): the spans are in it as the
+  ``user_annotation`` ranges of their names, on the profiler's own clock,
+  so every idle gap of a device trace lies under the range the host was
+  in.
 
 The recorder is on from import: it is bounded, costs a few tenths of a µs
 a span and runs on the host. :func:`enable` turns it off and on again.
@@ -47,7 +46,6 @@ import torch
 from torch.autograd import profiler as _profiler
 
 RING_SPANS = 1 << 16  # a 30 s window of training or serving records under 5,000
-CLOCK_MARK = 'trace.clock'  # the range that ties the profiler's clock to the spans'
 DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 
 _now = time.perf_counter_ns
@@ -223,72 +221,12 @@ def device_ms(s: Span) -> float | None:
     return s.events[0].elapsed_time(s.events[1])
 
 
-# ---------------------------------------------------------------- Chrome traces
-
-
-class Clock(NamedTuple):
-    """A profiler trace's time base (``baseTimeNanoseconds``) and pairs of
-    (``perf_counter_ns``, profiler ns) read together, which map a span's
-    stamp onto the trace's µs ``ts``."""
-
-    base_ns: int
-    points: tuple
-
-    def ts_us(self, perf_ns: int) -> float:
-        (p0, q0), (p1, q1) = self.points[0], self.points[-1]
-        slope = (q1 - q0) / (p1 - p0) if p1 > p0 else 1.0
-        return (q0 + (perf_ns - p0) * slope - self.base_ns) / 1e3
-
-
-def mark_clock() -> int:
-    """Open a :data:`CLOCK_MARK` range and return the ``perf_counter_ns``
-    of its middle: in a profile, :func:`clock_of` pairs the two."""
-    a = _now()
-    with _profiler.record_function(CLOCK_MARK):
-        pass
-    return (a + _now()) // 2
-
-
-def clock_of(trace: dict, marks: list) -> Clock:
-    """The :class:`Clock` of a profiler trace (its Chrome-trace dict) whose
-    :data:`CLOCK_MARK` ranges were opened by :func:`mark_clock` calls that
-    returned ``marks``, in order."""
-    base = int(trace.get('baseTimeNanoseconds', 0))
-    ranges = sorted(e['ts'] + e['dur'] / 2 for e in trace['traceEvents']
-                    if e.get('ph') == 'X' and e.get('name') == CLOCK_MARK)
-    if len(ranges) != len(marks):
-        raise ValueError(f'{len(ranges)} {CLOCK_MARK} ranges in the trace for {len(marks)} marks')
-    return Clock(base, tuple((m, base + round(1e3 * ts)) for m, ts in zip(marks, ranges)))
-
-
-def export_chrome(path: str, clock: Clock | None = None) -> None:
-    """Write the ring as Chrome-trace ``X`` events (category
-    ``program_span``, on the recording thread's id, ``args`` the span's id,
-    parent and device ms). On ``clock``'s time base they lie on the ranges
-    of that profiler trace; without one, ``ts`` is ``perf_counter`` µs."""
-    clock = clock or Clock(0, ((0, 0), (1, 1)))
-    pid = os.getpid()
-    events = []
-    for s in RECORDER.spans():
-        ts = clock.ts_us(s.start_ns)
-        args = {'id': s.id, 'parent': s.parent}
-        ms = device_ms(s)
-        if ms is not None:
-            args['device_ms'] = ms
-        events.append({'ph': 'X', 'cat': 'program_span', 'name': s.name, 'pid': pid,
-                       'tid': s.thread, 'ts': ts, 'dur': clock.ts_us(s.end_ns) - ts,
-                       'args': args})
-    with open(path, 'w') as f:
-        json.dump({'traceEvents': events, 'baseTimeNanoseconds': clock.base_ns,
-                   'displayTimeUnit': 'ms'}, f)
-
-
 # ---------------------------------------------------------------- profiles
 
 
 class Profile:
     """A running ``torch.profiler`` capture of the host (and of the device
-    on CUDA), with the clock marks taken at its two ends."""
+    on CUDA)."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
@@ -296,32 +234,26 @@ class Profile:
         if self.device.type == 'cuda':
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         self.prof = torch.profiler.profile(activities=activities)
-        self.marks = []
 
 
 def start_profile(device: torch.device) -> Profile:
     profile = Profile(device)
     profile.prof.start()
-    profile.marks.append(mark_clock())
     return profile
 
 
 def stop_profile(profile: Profile, profile_dir: str) -> float | None:
-    """Stop ``profile``, write its trace (``trace.json``) and the ring on
-    its time base (``spans.json``) into ``profile_dir``; return the
-    device's busy share over the trace (:func:`device_busy_fraction`)."""
+    """Stop ``profile`` and write its trace (``trace.json``, the spans as
+    ranges in it) into ``profile_dir``; return the device's busy share over
+    the trace (:func:`device_busy_fraction`), None without device work."""
     if profile.device.type == 'cuda':
         torch.cuda.synchronize(profile.device)
-    profile.marks.append(mark_clock())
     profile.prof.stop()
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, 'trace.json')
     profile.prof.export_chrome_trace(path)
-    with open(path) as f:
-        trace = json.load(f)
-    export_chrome(os.path.join(profile_dir, 'spans.json'), clock_of(trace, profile.marks))
-    print(f'\tProfiler trace written to {path}, the program spans beside it')
-    return busy_fraction(trace['traceEvents'])
+    print(f'\tProfiler trace written to {path}')
+    return device_busy_fraction(path)
 
 
 def busy_fraction(events: list) -> float | None:

@@ -27,9 +27,9 @@ Port of ``weed_instance_segmentation_tpu/engine/train.py``:
 It runs on the card; ``WISTPU_DEVICE=cpu`` runs it on the CPU (the
 counterpart of ``JAX_PLATFORMS=cpu``). ``WISTPU_AUGMENT=1`` turns on the
 device-side augmentation (``processing/augment.py``). ``WISTPU_PROFILE=<dir>``
-writes a ``torch.profiler`` trace of micro-steps 3-8 there (``trace.json``),
-the program's spans on its time base beside it (``spans.json``,
-``engine/trace.py``), and records the device's busy share over them as
+writes a ``torch.profiler`` trace of micro-steps 3-8 there (``trace.json``,
+in which the program's spans, ``engine/trace.py``, are ranges of their
+names), and records the device's busy share over them as
 ``device_duty_profiled``. ``input_duty_cycle`` is the share of the epoch
 loops' time (the spans ``train.loop``) spent outside the input path's spans
 (``loader.wait`` and ``loader.to_device``).
