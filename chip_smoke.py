@@ -5,7 +5,7 @@
 Phases, each of which must pass (the script exits non-zero on any failure):
 
 1. the card: name and power limit;
-2. build the four CUDA libraries from ``weed_instance_segmentation_tpu_torch/
+2. build the five CUDA libraries from ``weed_instance_segmentation_tpu_torch/
    csrc`` (one ``nvcc`` each, started together, into the package's ``build/``);
 3. each kernel against its plain PyTorch version, with times (CUDA events,
    medians, in turns with the plain version and one PyTorch library call;
@@ -29,13 +29,17 @@ Phases, each of which must pass (the script exits non-zero on any failure):
    the plain version's and its byte bound; and the MSDA value gradient at
    the training shape (value (2, 13125, 8, 32) bf16): its fixed-order
    float32 sums the same bits over 10 calls and through two backward
-   calls, and their device ms;
+   calls, and their device ms; the decoder's attention-mask kernel at the
+   serving shape ((4, 200, 200, 200) bf16 logits to 25², 50² and 100²): the
+   plain chain's bits, one serving request's 10 calls and one 100² call
+   timed against the plain chain and the byte bound;
 4. serving: Swin-L Mask2Former, 800², batch 4, bf16, random seeded weights;
    a first request that captures the encoder's CUDA graph (24
    window-attention and 6 MSDA launches recorded, and run by a profiled
    replay, by kernel name), then 3 requests of uint8 (4, 1024, 1024, 3)
    through ``make_serving_fn``, each replaying once and launching 9
-   masked-attention and 1 post-process forward kernels itself, the first
+   masked-attention, 10 attention-mask and 1 post-process forward kernels
+   itself, the first
    with the eager request's bits; then one more request whose 9 decoder masked-attention
    calls are recorded, each held against the plain version on its real
    inputs and masks;
@@ -44,8 +48,9 @@ Phases, each of which must pass (the script exits non-zero on any failure):
    ``.npz`` cache through ``PreprocessedDataset`` → ``make_train_collate`` →
    ``DataLoader`` → the card; 2 warm-up and 6 timed micro-steps, each with a
    finite loss that launches both attention kernels forward and backward,
-   parameters untouched on accumulation-only steps and changed on updates;
-   then a ``torch.profiler`` trace of two more: the device's idle share,
+   parameters untouched on accumulation-only steps and changed on updates,
+   the last warm-up step's 10 attention masks held against the plain chain
+   under the same autocast; then a ``torch.profiler`` trace of two more: the device's idle share,
    device time by kernel, and the split into the train step's own ranges
    (forward, criterion with the host matching, backward, optimizer);
 6. evaluation: Swin-L with random seeded weights saved by ``save_pretrained``
@@ -174,6 +179,7 @@ from weed_instance_segmentation_tpu_torch.losses.criterion import PointDraws
 from weed_instance_segmentation_tpu_torch.models import transformer_decoder
 from weed_instance_segmentation_tpu_torch.models.pixel_decoder import reference_points_constant
 from weed_instance_segmentation_tpu_torch.models.swin import shifted_window_attn_mask
+from weed_instance_segmentation_tpu_torch.ops import attention_mask as attention_mask_ops
 from weed_instance_segmentation_tpu_torch.ops import deformable_attention
 from weed_instance_segmentation_tpu_torch.ops import masked_attention as masked_attention_ops
 from weed_instance_segmentation_tpu_torch.ops import postprocess_kernel as postprocess_kernel_ops
@@ -185,7 +191,7 @@ from weed_instance_segmentation_tpu_torch.ops.masked_attention import (
 from weed_instance_segmentation_tpu_torch.ops.postprocess_kernel import (
     fused_upsample_stats, fused_upsample_stats_plain, upsample_plain,
 )
-from weed_instance_segmentation_tpu_torch.ops.resize import nearest_indices
+from weed_instance_segmentation_tpu_torch.ops.resize import _bilinear_weights, nearest_indices
 from weed_instance_segmentation_tpu_torch.ops.window_attention import (
     window_attention, window_attention_plain,
 )
@@ -201,7 +207,7 @@ from weed_instance_segmentation_tpu_torch.processing.postprocess import (
 # (csrc/<library>.cu) and its kernels' launch counters (engine/trace.py),
 # 'wistpu.<kernel>.launches', forward and backward
 KERNEL_OPS = (postprocess_kernel_ops, window_attention_ops, masked_attention_ops,
-              deformable_attention)
+              deformable_attention, attention_mask_ops)
 LIBRARIES = tuple(op._LIBRARY for op in KERNEL_OPS)
 _OWNED = [(counter.removeprefix('wistpu.').removesuffix('.launches'), counter, op._LIBRARY)
           for op in KERNEL_OPS
@@ -216,6 +222,8 @@ KERNELS = {  # name → the TPU kernel it replaces
     'masked_attention_bwd': 'tools/ab_masked_attn.py:71',
     'msda_fwd': 'none: the JAX package samples with XLA '
                 '(weed_instance_segmentation_tpu/ops/msda_select.py)',
+    'attention_mask': 'none: the JAX package resizes and thresholds with XLA '
+                      '(weed_instance_segmentation_tpu/models/transformer_decoder.py)',
 }
 SERVING_BATCH, SERVING_IN, SERVING_HW, REQUESTS = 4, 1024, 800, 3
 TRAIN_BATCH, TRAIN_HW, TRAIN_INSTANCES, TRAIN_LABELS = 2, 800, 10, 5
@@ -735,6 +743,67 @@ def phase_msda_value_grad(dev: torch.device) -> dict:
     return {'sums_differing': differ, 'device_ms': ms}
 
 
+MASK_SIZES = ((25, 25), (50, 50), (100, 100))  # the decoder's levels at 800²
+MASK_LAYERS = 10  # Swin-L's decoder_layers: the masks one request predicts
+
+
+def attention_mask_bytes(logits: torch.Tensor, size: tuple) -> int:
+    """The least bytes one attention-mask call moves: each plane's logits
+    that its taps weigh (the rows times the columns some output reads with a
+    weight above 0), read once, and the bool mask written once."""
+    planes, *in_hw = logits.shape[0] * logits.shape[1], *logits.shape[2:]
+    read = 1
+    for n, m in zip(in_hw, size):
+        lo, hi, frac = _bilinear_weights(n, m)
+        read *= len(set(lo.tolist()) | set(hi[frac > 0].tolist()))
+    return planes * (read * logits.element_size() + size[0] * size[1])
+
+
+@torch.no_grad()
+def phase_attention_mask(dev: torch.device) -> dict:
+    """The attention-mask kernel at the serving shape ((4, 200, 200, 200)
+    bf16 logits): the plain chain's bits at each level, then one serving
+    request's 10 calls (25², 50², 100² in the decoder's order) and one
+    100² call, kernel and plain chain timed in turns, with device ms and the
+    byte bound."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    logits = (torch.randn((SERVING_BATCH, 200, SERVING_HW // 4, SERVING_HW // 4), generator=g,
+                          device=dev) * 3).bfloat16()
+    for size in MASK_SIZES:
+        got = attention_mask_ops.attention_mask(logits, size)
+        want = attention_mask_ops.attention_mask_plain(logits, size)
+        differ = int((got != want).sum())
+        check(differ == 0, f'the attention-mask kernel differs from the plain chain at {differ} '
+                           f'of {want.numel()} decisions at {size}')
+    request = [MASK_SIZES[i % len(MASK_SIZES)] for i in range(MASK_LAYERS)]
+    before = counts()['attention_mask']
+    for size in request:
+        attention_mask_ops.attention_mask(logits, size)
+    check(counts()['attention_mask'] - before == MASK_LAYERS,
+          f'a request\'s {MASK_LAYERS} masks did not launch the kernel {MASK_LAYERS} times')
+    calls = {'request': request, 'one_100': [MASK_SIZES[-1]]}
+    result = {}
+    for name, sizes in calls.items():
+        fns = {'plain': lambda sizes=sizes: [attention_mask_ops.attention_mask_plain(logits, s)
+                                             for s in sizes],
+               'kernel': lambda sizes=sizes: [attention_mask_ops.attention_mask(logits, s)
+                                              for s in sizes]}
+        t = timed_in_turns(fns)
+        dev_ms = {key: device_ms(fn) for key, fn in fns.items()}
+        moved = sum(attention_mask_bytes(logits, s) for s in sizes)
+        bound_ms = 1e3 * moved / roofline.HBM_BYTES_PER_S
+        log(f'attention mask, {name} ({len(sizes)} calls on {tuple(logits.shape)} bf16 logits): '
+            f'kernel {t["kernel"]:.4f} ms, plain {t["plain"]:.4f} ms (medians of {TIMED_RUNS}); '
+            f'device busy {dev_ms["kernel"]:.4f} / {dev_ms["plain"]:.4f} ms; moves '
+            f'{moved / 1e6:.1f} MB, bound {bound_ms:.4f} ms (bytes), '
+            f'{100 * bound_ms / dev_ms["kernel"]:.2f} % of it')
+        result[name] = {'max_abs_err': 0.0, 'ms': t['kernel'], 'plain_ms': t['plain'],
+                        'bound_ms': bound_ms, 'bound_by': 'bytes', 'library_ms': None,
+                        'device_ms': dev_ms['kernel'], 'plain_device_ms': dev_ms['plain'],
+                        'library_device_ms': None}
+    return {**result['request'], 'one_100': result['one_100']}
+
+
 def check_result(res: dict, batch: int, hw: tuple, num_queries: int) -> None:
     check(set(res) == {'segmentation', 'segment_ids', 'labels', 'scores', 'valid'},
           f'result keys {sorted(res)}')
@@ -768,7 +837,7 @@ def phase_serving(dev: torch.device) -> dict:
     cfg = model.config
     per_request = {'fused_upsample_stats': 1, 'window_attention_fwd': sum(cfg.backbone_config.depths),
                    'masked_attention_fwd': cfg.decoder_layers - 1,
-                   'msda_fwd': cfg.encoder_layers}
+                   'msda_fwd': cfg.encoder_layers, 'attention_mask': cfg.decoder_layers}
     encoder = {k: per_request[k] if k in ('window_attention_fwd', 'msda_fwd') else 0
                for k in LAUNCH_COUNTERS}
     held, captures = captured_counts(), trace.counter('serve.graph.captures')
@@ -914,8 +983,46 @@ def trace_split(sl: Slice, range_names: tuple) -> tuple[dict, dict, collections.
     return device_ms, host_ms, by_kernel
 
 
+@contextlib.contextmanager
+def recorded_attention_masks():
+    """Within the block, each of the decoder's attention-mask calls is
+    recorded as (logits, size, mask, whether CUDA autocast was on)."""
+    calls = []
+    real = transformer_decoder.attention_mask
+
+    def recording(logits, size):
+        mask = real(logits, size)
+        calls.append((logits, tuple(size), mask, torch.is_autocast_enabled('cuda')))
+        return mask
+
+    transformer_decoder.attention_mask = recording
+    try:
+        yield calls
+    finally:
+        transformer_decoder.attention_mask = real
+
+
+def check_attention_masks_under_autocast(calls: list, layers: int) -> None:
+    """A training micro-step's attention masks, made by the kernel under the
+    step's bf16 autocast from its real mask logits, against the plain chain
+    under the same autocast, bit for bit."""
+    check(len(calls) == layers and all(on for *_, on in calls),
+          f'{len(calls)} attention-mask calls recorded in a micro-step, not {layers} under '
+          'autocast')
+    with torch.no_grad(), torch.autocast('cuda', torch.bfloat16):
+        for logits, size, mask, _ in calls:
+            want = attention_mask_ops.attention_mask_plain(logits, size)
+            differ = int((mask != want).sum())
+            check(differ == 0, f'under autocast the attention-mask kernel differs from the plain '
+                               f'chain at {differ} of {want.numel()} decisions at {size}')
+    log(f'training\'s {len(calls)} attention masks under bf16 autocast ({calls[0][0].dtype} '
+        f'logits {tuple(calls[0][0].shape)}): the plain chain\'s bits')
+
+
 def phase_training(dev: torch.device, cache_dir: str) -> dict:
-    """Swin-L 800² b2 bf16, accumulation 2, remat, from the .npz cache."""
+    """Swin-L 800² b2 bf16, accumulation 2, remat, from the .npz cache; the
+    last warm-up micro-step's attention masks against the plain chain under
+    the step's autocast."""
     steps_total = WARMUP_STEPS + TIMED_STEPS + 1
     t0 = time.perf_counter()
     process_and_save(_SynthRaw(TRAIN_BATCH * steps_total), cache_dir)
@@ -932,10 +1039,16 @@ def phase_training(dev: torch.device, cache_dir: str) -> dict:
     step = make_train_step(model, cfg, optimizer, ACCUMULATION, torch.bfloat16)
     for i in range(WARMUP_STEPS):
         t0 = time.perf_counter()
-        loss = step(next(batches))
+        if i == WARMUP_STEPS - 1:
+            with recorded_attention_masks() as masks:
+                loss = step(next(batches))
+        else:
+            loss = step(next(batches))
         torch.cuda.synchronize()
         log(f'warm-up micro-step {i}: loss {loss.item():.4f}, '
             f'{1e3 * (time.perf_counter() - t0):.1f} ms')
+    check_attention_masks_under_autocast(masks, cfg.decoder_layers)
+    del masks
 
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
@@ -956,6 +1069,9 @@ def phase_training(dev: torch.device, cache_dir: str) -> dict:
                      'masked_attention_bwd'):
             check(launched[name] > 0, f'micro-step {i} did not launch {name}')
         check(launched['msda_fwd'] == 0, f'micro-step {i} launched the no-grad MSDA kernel')
+        check(launched['attention_mask'] == cfg.decoder_layers,
+              f'micro-step {i} launched the attention-mask kernel {launched["attention_mask"]} '
+              f'times, not {cfg.decoder_layers}')
         check(_unchanged(model, snapshot) != update,
               f'micro-step {i}: parameters {"unchanged on an update" if update else "changed between updates"}')
         log(f'micro-step {i}: loss {loss.item():.4f}, {1e3 * times[-1]:.1f} ms, '
@@ -1098,6 +1214,7 @@ def phase_eval(dev: torch.device, root: str) -> dict:
                 'window_attention_fwd': n_batches * sum(cfg.backbone_config.depths),
                 'masked_attention_fwd': n_batches * (cfg.decoder_layers - 1),
                 'msda_fwd': n_batches * cfg.encoder_layers,
+                'attention_mask': n_batches * cfg.decoder_layers,
                 'window_attention_bwd': 0, 'masked_attention_bwd': 0}
     what = f'swin-large {TRAIN_HW}x{TRAIN_HW} b{EVAL_BATCH} f32, {EVAL_IMAGES} images'
 
@@ -1273,6 +1390,7 @@ def phase_inference(dev: torch.device, root: str) -> dict:
                 'window_attention_fwd': images_run * sum(cfg.backbone_config.depths),
                 'masked_attention_fwd': images_run * (cfg.decoder_layers - 1),
                 'msda_fwd': images_run * cfg.encoder_layers,
+                'attention_mask': images_run * cfg.decoder_layers,
                 'window_attention_bwd': 0, 'masked_attention_bwd': 0}
     check(launches == expected, f'inference launches {launches}, the loops imply {expected}')
     pixels = processor(images=images[1], return_tensors='np')['pixel_values']
@@ -1547,6 +1665,7 @@ def phase_trainer(dev: torch.device, root: str) -> dict:
                 'masked_attention_fwd': (micro_steps + val_batches + test_batches) * masked,
                 'masked_attention_bwd': micro_steps * masked,
                 'msda_fwd': (val_batches + test_batches) * cfg.encoder_layers,
+                'attention_mask': (micro_steps + val_batches + test_batches) * cfg.decoder_layers,
                 'fused_upsample_stats': TRAINER_SPLITS['Test']}
     check(launches == expected, f'trainer launches {launches}, the loops imply {expected}')
 
@@ -1793,6 +1912,7 @@ def phase_data_parallel(dev: torch.device, root: str) -> dict:
                 'masked_attention_fwd': (micro_steps + val_batches + test_batches) * masked,
                 'masked_attention_bwd': micro_steps * masked,
                 'msda_fwd': (val_batches + test_batches) * cfg.encoder_layers,
+                'attention_mask': (micro_steps + val_batches + test_batches) * cfg.decoder_layers,
                 'fused_upsample_stats': TRAINER_SPLITS['Test'] // DP_RANKS}
     t0 = time.perf_counter()
     reports = _run_ranks(root, os.path.join(root, 'dp_reports'))
@@ -2055,11 +2175,12 @@ def phase_tiny_parity(dev: torch.device) -> None:
 
 
 EXPORT_REQUESTS = 5
-EXPORT_ARCHS = {  # arch → launches a request: window, masked and MSDA forward, post-process
+EXPORT_ARCHS = {  # arch → launches a request: window, masked and MSDA forward, post-process,
+    # attention mask
     'swin-large': {'window_attention_fwd': 24, 'masked_attention_fwd': 9, 'msda_fwd': 6,
-                   'fused_upsample_stats': 1},
+                   'fused_upsample_stats': 1, 'attention_mask': 10},
     'resnet50': {'window_attention_fwd': 0, 'masked_attention_fwd': 9, 'msda_fwd': 6,
-                 'fused_upsample_stats': 1},
+                 'fused_upsample_stats': 1, 'attention_mask': 10},
 }
 EXPORT_SCORE_TOL = 1e-5  # loaded program against the live function, the same kernels
 # the artifact loaded where the port's model code cannot be imported: it
@@ -2071,8 +2192,9 @@ sys.modules['weed_instance_segmentation_tpu_torch.models'] = None  # import rais
 import torch
 from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.engine.export import load_serving
-from weed_instance_segmentation_tpu_torch.ops import deformable_attention, masked_attention
-from weed_instance_segmentation_tpu_torch.ops import postprocess_kernel, window_attention
+from weed_instance_segmentation_tpu_torch.ops import attention_mask, deformable_attention
+from weed_instance_segmentation_tpu_torch.ops import masked_attention, postprocess_kernel
+from weed_instance_segmentation_tpu_torch.ops import window_attention
 out_dir, n, shape, results = sys.argv[1], int(sys.argv[2]), json.loads(sys.argv[3]), sys.argv[4]
 t0 = time.perf_counter()
 serve, manifest = load_serving(out_dir)
@@ -2084,7 +2206,8 @@ requests = [torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.ui
 ops = {'window_attention_fwd': window_attention.LAUNCHES,
        'masked_attention_fwd': masked_attention.LAUNCHES,
        'msda_fwd': deformable_attention.LAUNCHES,
-       'fused_upsample_stats': postprocess_kernel.LAUNCHES}
+       'fused_upsample_stats': postprocess_kernel.LAUNCHES,
+       'attention_mask': attention_mask.LAUNCHES}
 launches, out = [], []
 for raw in requests:
     before = {k: trace.counter(name) for k, name in ops.items()}
@@ -2299,6 +2422,7 @@ def main() -> int:
     timing.update(phase_masked_attention(dev))
     timing['msda_fwd'] = phase_msda_forward(dev)
     phase_msda_value_grad(dev)
+    timing['attention_mask'] = phase_attention_mask(dev)
 
     serving = phase_serving(dev)
     with tempfile.TemporaryDirectory() as cache_dir:
@@ -2314,14 +2438,16 @@ def main() -> int:
     check(serving['fused_upsample_stats'] > 0, 'the serving run never launched the post-process')
     check(training['msda_fwd'] == 0, 'the training run launched the no-grad MSDA kernel')
     for name in ('fused_upsample_stats', 'window_attention_fwd', 'masked_attention_fwd',
-                 'msda_fwd'):
+                 'msda_fwd', 'attention_mask'):
         check(evaluation[name] > 0, f'the eval run never launched {name}')
         check(inference[name] > 0, f'the inference run never launched {name}')
         check(exported['swin-large'][name] > 0, f'the export run never launched {name}')
     check(exported['resnet50']['masked_attention_fwd'] > 0
           and exported['resnet50']['msda_fwd'] > 0
-          and exported['resnet50']['fused_upsample_stats'] > 0,
-          'the resnet export run never launched the masked attention, MSDA or the post-process')
+          and exported['resnet50']['fused_upsample_stats'] > 0
+          and exported['resnet50']['attention_mask'] > 0,
+          'the resnet export run never launched the masked attention, MSDA, the post-process '
+          'or the attention mask')
     phase_tiny_parity(dev)
     with tempfile.TemporaryDirectory() as root:
         phase_tiny_eval(dev, root)
@@ -2332,7 +2458,7 @@ def main() -> int:
         check(trainer[name] > 0, f'the trainer run never launched {name}')
         check(data_parallel[name] > 0, f'the data-parallel run never launched {name}')
 
-    path = {'fused_upsample_stats': serving, 'msda_fwd': serving}
+    path = {'fused_upsample_stats': serving, 'msda_fwd': serving, 'attention_mask': serving}
     kernels = []
     for name, replaces in KERNELS.items():
         launches = path.get(name, training)[name]

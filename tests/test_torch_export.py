@@ -128,12 +128,12 @@ def test_loaded_program_matches_jax_serving(exported, monkeypatch):
 
 def test_exported_graph_calls_the_kernel_ops(exported):
     """The saved graph calls the registered kernel operators: post-process,
-    masked-attention and MSDA forward in both; window-attention forward in
-    the Swin model only; no backward."""
+    masked-attention forward, the decoder's attention mask and MSDA forward
+    in both; window-attention forward in the Swin model only; no backward."""
     graph = exported['program'].graph
     ops = {str(n.target) for n in graph.nodes if str(n.target).startswith('wistpu.')}
     want = {'wistpu.fused_upsample_stats.default', 'wistpu.masked_attention_fwd.default',
-            'wistpu.msda_fwd.default'}
+            'wistpu.attention_mask.default', 'wistpu.msda_fwd.default'}
     if exported['arch'] == 'swin':
         want.add('wistpu.window_attention_fwd.default')
     assert ops == want

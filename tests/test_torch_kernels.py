@@ -1,6 +1,7 @@
 """The CUDA kernels' wrappers and, on a card, each kernel against its plain
 version: the post-process kernel, the window-attention and
-masked-attention kernels forward and backward, and the MSDA forward.
+masked-attention kernels forward and backward, the MSDA forward and the
+decoder's attention mask.
 
 This file imports neither jax nor the JAX package, so the ``cuda`` tests also
 run on a machine that has only PyTorch and the CUDA toolkit:
@@ -26,6 +27,8 @@ from weed_instance_segmentation_tpu_torch.evaluation.mean_ap import mask_iou_mat
 from weed_instance_segmentation_tpu_torch.models.configuration import Mask2FormerConfig
 from weed_instance_segmentation_tpu_torch.models.pixel_decoder import PixelDecoder
 from weed_instance_segmentation_tpu_torch.models.swin import shifted_window_attn_mask
+from weed_instance_segmentation_tpu_torch.models.transformer_decoder import MaskPredictor
+from weed_instance_segmentation_tpu_torch.ops import attention_mask as mask_ops
 from weed_instance_segmentation_tpu_torch.ops import deformable_attention as msda_ops
 from weed_instance_segmentation_tpu_torch.ops.masked_attention import (
     BACKWARD_LAUNCHES as MASKED_BACKWARD_LAUNCHES, BLOCKS_PER_SM, KEY_TILE,
@@ -36,7 +39,7 @@ from weed_instance_segmentation_tpu_torch.ops.postprocess_kernel import (
     fused_upsample_stats, fused_upsample_stats_plain, shared_layout, tap_table, upsample_plain,
 )
 from weed_instance_segmentation_tpu_torch.ops.resize import (
-    bilinear_resize_matrix, nearest_indices,
+    _bilinear_weights, bilinear_resize_matrix, nearest_indices,
 )
 from weed_instance_segmentation_tpu_torch.ops import window_attention as window_ops
 from weed_instance_segmentation_tpu_torch.ops.window_attention import (
@@ -1132,3 +1135,277 @@ def test_msda_kernel_raises_on_what_it_does_not_take(cuda_device):
         with pytest.raises(TypeError, match='float32 or bfloat16'):
             msda_ops.msda(value.half(), shapes, locations, weights)
     assert trace.counter(msda_ops.LAUNCHES) == launches
+
+
+# name → (batch, queries, logits (H, W), target sizes); the logits as the
+# decoder makes them, (B, Q, H, W) at a quarter of the image
+MASK_CASES = {
+    'serving-b4': (4, 200, (200, 200), ((25, 25), (50, 50), (100, 100))),  # Swin-L 800²
+    'training-b2': (2, 200, (200, 200), ((25, 25), (50, 50), (100, 100))),
+    'r50-q100': (4, 100, (200, 200), ((25, 25), (50, 50), (100, 100))),
+    'non-square': (2, 20, (200, 304), ((25, 38), (50, 76), (100, 152))),  # 800 x 1216
+    'inexact-ratios': (2, 7, (37, 50), ((9, 13), (17, 23), (60, 70))),  # and an upsample
+    'identity': (2, 9, (25, 38), ((25, 38),)),
+}
+
+
+def _mask_logits(b, q, in_hw, size, dtype, device, seed=5):
+    """Seeded (B, Q, H, W) logits in ``dtype``: normal × 3, with row (0, 0)
+    at -4 everywhere (every position blocked: the escape) and row (0, 1) at
+    -4 but for output position (0, 0)'s 2 × 2 taps at +4 (that position
+    alone open where the resize keeps the map or shrinks it at least twofold:
+    :func:`_assert_escape_and_one_open`)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, q, *in_hw), generator=g) * 3
+    x[0, :2] = -4.0
+    (ylo, yhi, yfrac), (xlo, xhi, xfrac) = (_bilinear_weights(n, m)
+                                            for n, m in zip(in_hw, size))
+    for row in (ylo[0], yhi[0]) if yfrac[0] else (ylo[0],):
+        for col in (xlo[0], xhi[0]) if xfrac[0] else (xlo[0],):
+            x[0, 1, row, col] = 4.0
+    return x.to(device, dtype)
+
+
+def _assert_escape_and_one_open(mask, in_hw, size):
+    """Row (0, 0) of a :func:`_mask_logits` mask is all open (escaped), and
+    row (0, 1) has one open position where its taps are no other
+    position's."""
+    assert not mask[0, 0, 0].any()
+    if all(n == m or n >= 2 * m for n, m in zip(in_hw, size)):
+        assert int((~mask[0, 0, 1]).sum()) == 1
+
+
+def _chain(logits, size):
+    """Today's chain, written out: F.interpolate → sigmoid → < 0.5 → the
+    all-masked-row escape."""
+    h, w = logits.shape[-2:]
+    up = logits if (h, w) == tuple(size) else F.interpolate(
+        logits.flatten(0, 1)[:, None], size=tuple(size), mode='bilinear',
+        align_corners=False)
+    blocked = (torch.sigmoid(up) < 0.5).reshape(*logits.shape[:2], -1)
+    return (blocked & ~blocked.all(dim=-1, keepdim=True))[:, None]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case,size', [('inexact-ratios', (9, 13)), ('inexact-ratios', (60, 70)),
+                                       ('identity', (25, 38)), ('small', (4, 4))])
+def test_attention_mask_operator_on_cpu_is_todays_chain(case, size, dtype):
+    """``torch.ops.wistpu.attention_mask`` on CPU tensors gives the bits of
+    the chain it replaces, the escape included, and launches nothing."""
+    b, q, in_hw, _ = MASK_CASES.get(case, (2, 3, (16, 16), None))
+    logits = _mask_logits(b, q, in_hw, size, dtype, 'cpu')
+    launches = trace.counter(mask_ops.LAUNCHES)
+    got = mask_ops.attention_mask(logits, size)
+    want = _chain(logits, size)
+    assert got.dtype == torch.bool and got.shape == (b, 1, q, size[0] * size[1])
+    assert torch.equal(got, want)
+    _assert_escape_and_one_open(got, in_hw, size)
+    assert trace.counter(mask_ops.LAUNCHES) == launches
+
+
+def test_mask_predictor_goes_through_the_operator_and_torch_export_records_it():
+    """The decoder's mask predictor calls the operator on its detached
+    logits (its attention mask takes no gradient); the operator's fake gives
+    the shape, so ``torch.export`` records it, and the exported program gives
+    the eager bits."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Calls(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    torch.manual_seed(0)
+    predictor = MaskPredictor(Mask2FormerConfig.tiny_test(num_labels=3))
+    cfg = Mask2FormerConfig.tiny_test(num_labels=3)
+    hidden = torch.randn((2, 5, cfg.hidden_dim), requires_grad=True)
+    pixels = torch.randn((2, 12, 16, cfg.mask_feature_size))
+    with Calls() as calls:
+        logits, mask = predictor(hidden, pixels, (3, 4))
+    assert 'wistpu.attention_mask.default' in calls.ops
+    assert logits.requires_grad and not mask.requires_grad
+    assert torch.equal(mask, _chain(logits.detach(), (3, 4)))
+    program = torch.export.export(predictor, (hidden.detach(), pixels, (3, 4)), strict=False)
+    ops = {str(n.target) for n in program.graph.nodes if str(n.target).startswith('wistpu.')}
+    assert ops == {'wistpu.attention_mask.default'}
+    assert torch.equal(program.module()(hidden.detach(), pixels, (3, 4))[1], mask)
+
+
+def test_attention_mask_kernel_check_rejects_what_the_kernel_does_not_take():
+    """The CUDA implementation's checks (they read no device): logits other
+    than float32 or bfloat16, not (B, Q, H, W), not contiguous, and an empty
+    or 3-axis size raise. A row too long for a block's shared memory is the
+    entry point's to refuse (:func:`test_attention_mask_source_on_the_cpu_gives_the_plain_bits`)."""
+    logits = torch.zeros((2, 3, 8, 8), dtype=torch.bfloat16)
+    mask_ops._check_kernel(logits, (4, 4))
+    with pytest.raises(TypeError, match='float32 or bfloat16'):
+        mask_ops._check_kernel(logits.half(), (4, 4))
+    with pytest.raises(ValueError, match=r'\(B, Q, H, W\)'):
+        mask_ops._check_kernel(logits[0], (4, 4))
+    with pytest.raises(ValueError, match='contiguous'):
+        mask_ops._check_kernel(logits.transpose(2, 3), (4, 4))
+    for size in ((0, 4), (4, 4, 1)):
+        with pytest.raises(ValueError, match='positive'):
+            mask_ops._check_kernel(logits, size)
+
+
+@pytest.fixture(scope='module')
+def attention_mask_source_on_cpu(tmp_path_factory):
+    """``csrc/attention_mask.cu`` compiled by g++ for the CPU against the
+    host stand-ins in ``tests/cuda_host_stub/`` (a block at a time, one host
+    thread per CUDA thread, so that its block-wide OR is a barrier; its
+    dynamic shared memory a static array the block's threads share; no
+    contracted multiply-add); the entry point ``wis_attention_mask`` bound
+    with ``ctypes``."""
+    if shutil.which('g++') is None:
+        pytest.skip('needs g++ to compile the kernel source for the CPU')
+    here = os.path.dirname(os.path.abspath(__file__))
+    csrc = os.path.join(os.path.dirname(mask_ops.__file__), os.pardir, 'csrc')
+    with open(os.path.join(csrc, 'attention_mask.cu')) as f:
+        source, launches = re.subn(r'(\w+<[^<>;]*>)<<<([^,]+), ([^,]+), [^>]*>>>\(([^;]*)\);',
+                                   r'emulate_blocks(\2, \3, [&] { \1(\4); });', f.read())
+        source, shared = re.subn(r'extern __shared__ (\w+) (\w+)\[\];', r'static \1 \2[4096];',
+                                 source)
+    assert launches == 1 and shared == 1
+    out = tmp_path_factory.mktemp('attention_mask_cpu')
+    src, lib = out / 'attention_mask_cpu.cpp', out / 'libattention_mask_cpu.so'
+    src.write_text(source)
+    subprocess.run(['g++', '-std=c++17', '-O1', '-ffp-contract=off', '-pthread', '-shared',
+                    '-fPIC', '-I', os.path.join(here, 'cuda_host_stub'), '-I', csrc, '-o',
+                    str(lib), str(src)], check=True, capture_output=True, timeout=300)
+    fn = ctypes.CDLL(str(lib)).wis_attention_mask
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('in_hw,size', [((16, 16), (8, 8)), ((16, 16), (2, 2)),
+                                        ((12, 20), (3, 5)), ((5, 7), (5, 7)),
+                                        ((40, 40), (20, 20))],
+                         ids=['halve', 'eighth', 'non-square', 'identity', 'rows-loop'])
+def test_attention_mask_source_on_the_cpu_gives_the_plain_bits(attention_mask_source_on_cpu,
+                                                               in_hw, size, dtype):
+    """The kernel's own source, run on the CPU (:func:`attention_mask_source_on_cpu`):
+    its taps, rounding and sigmoid threshold, its per-row escape, and its
+    stores (16-byte chunks, the bytes a row shares with a chunk of its
+    neighbours one by one, into an output 3 bytes off a 16-byte boundary)
+    give the plain version's bits at sizes whose resize is exact in float32
+    (integer ratios: the CPU's and the kernel's multiply-adds agree there);
+    rows of 15 and 35 positions start off 16-byte boundaries, and a row of
+    400 takes each thread twice. The entry point refuses an empty size and
+    a row longer than a block's shared memory holds, before any store."""
+    b, q = 2, 3
+    logits = _mask_logits(b, q, in_hw, size, dtype, 'cpu')
+    hw = size[0] * size[1]
+    buffer = torch.ones(b * q * hw + 19, dtype=torch.bool)
+    out = buffer[3:3 + b * q * hw]
+    args = [logits.data_ptr(), out.data_ptr(), b * q, *in_hw, *size,
+            int(dtype == torch.bfloat16), None]
+    assert attention_mask_source_on_cpu(*args) == 0
+    want = mask_ops.attention_mask_plain(logits, size)
+    assert torch.equal(out.view(b, 1, q, hw), want)
+    assert buffer[:3].all() and buffer[3 + b * q * hw:].all()  # nothing outside the output
+    _assert_escape_and_one_open(want, in_hw, size)
+    args[5] = 0  # out_h
+    assert attention_mask_source_on_cpu(*args) != 0
+    args[5:7] = 500, 500  # 250,000 positions: over sm_90's 232,448 bytes
+    before = buffer.clone()
+    assert attention_mask_source_on_cpu(*args) != 0
+    assert torch.equal(buffer, before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case', list(MASK_CASES))
+def test_attention_mask_kernel_matches_plain_bit_for_bit(cuda_device, case, dtype):
+    """The attention-mask kernel against the plain chain on the card (PyTorch's
+    CUDA resize and sigmoid) at every target size of ``case``: the same
+    bits, the escape and a lone open position included; one launch a call,
+    and the same bits from a second call."""
+    b, q, in_hw, sizes = MASK_CASES[case]
+    for size in sizes:
+        logits = _mask_logits(b, q, in_hw, size, dtype, cuda_device)
+        launches = trace.counter(mask_ops.LAUNCHES)
+        got = mask_ops.attention_mask(logits, size)
+        again = mask_ops.attention_mask(logits, size)
+        assert trace.counter(mask_ops.LAUNCHES) == launches + 2
+        want = mask_ops.attention_mask_plain(logits, size)
+        assert got.dtype == torch.bool and got.shape == want.shape
+        differ = int((got != want).sum())
+        assert differ == 0, f'{size}: {differ} of {want.numel()} decisions differ'
+        assert torch.equal(got, again)
+        _assert_escape_and_one_open(want, in_hw, size)
+
+
+def _bit_patterns(dtype, device):
+    """Every bfloat16 value, or 2²¹ float32 values around 0 (2²⁰
+    consecutive ones on either side of the first blocked logit, -1.79e-7,
+    and 2²⁰ evenly spaced in [-1e-3, 1e-3]), as (1, rows, 32, 32) logits."""
+    if dtype == torch.bfloat16:
+        values = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16).view(dtype)
+    else:
+        cut = torch.tensor([-1.79e-7], dtype=torch.float32).view(torch.int32)
+        near = (cut + torch.arange(-2 ** 19, 2 ** 19, dtype=torch.int32)).view(dtype)
+        values = torch.cat([near, torch.linspace(-1e-3, 1e-3, 2 ** 20)])
+    return values.reshape(1, -1, 32, 32).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
+def test_attention_mask_kernel_sigmoid_cut_matches_plain(cuda_device, dtype):
+    """The sigmoid threshold at its cut: every bfloat16 value (NaNs and
+    infinities included), and a dense float32 sweep around 0, fed as logits
+    both as they are (the identity size) and each repeated 2 × 2 and halved
+    (the resize gives the value back), decided as the plain chain decides."""
+    logits = _bit_patterns(dtype, cuda_device)
+    doubled = logits.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    for x in (logits, doubled):
+        got = mask_ops.attention_mask(x, (32, 32))
+        want = mask_ops.attention_mask_plain(x, (32, 32))
+        differ = int((got != want).sum())
+        assert differ == 0, f'{differ} of {want.numel()} decisions differ'
+    assert 0 < int(want.sum()) < want.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['training-b2', 'identity'])
+def test_attention_mask_kernel_under_autocast_matches_plain(cuda_device, case):
+    """Under bf16 autocast, as the training step runs the decoder: bf16
+    logits are resized in float32 (autocast's list holds the bilinear
+    resize) and thresholded in float32, and at the identity size kept and
+    thresholded in bf16. The kernel gives the plain chain's bits under the
+    same autocast, and at a resize they are not the bits of the chain in
+    bf16 without autocast."""
+    b, q, in_hw, sizes = MASK_CASES[case]
+    for size in sizes:
+        logits = _mask_logits(b, q, in_hw, size, torch.bfloat16, cuda_device)
+        launches = trace.counter(mask_ops.LAUNCHES)
+        with torch.autocast('cuda', torch.bfloat16):
+            got = mask_ops.attention_mask(logits, size)
+            want = mask_ops.attention_mask_plain(logits, size)
+        assert trace.counter(mask_ops.LAUNCHES) == launches + 1
+        differ = int((got != want).sum())
+        assert differ == 0, f'{size}: {differ} of {want.numel()} decisions differ'
+        in_bf16 = mask_ops.attention_mask_plain(logits, size)
+        assert torch.equal(want, in_bf16) == (tuple(size) == in_hw)
+
+
+@pytest.mark.cuda
+def test_attention_mask_kernel_raises_on_what_it_does_not_take(cuda_device):
+    """A CUDA tensor takes the kernel or raises: float16 and non-contiguous
+    logits raise with no launch, and a row longer than a block's shared
+    memory holds is refused by the entry point."""
+    logits = torch.zeros((2, 3, 8, 8), device=cuda_device)
+    launches = trace.counter(mask_ops.LAUNCHES)
+    with pytest.raises(TypeError, match='float32 or bfloat16'):
+        mask_ops.attention_mask(logits.half(), (4, 4))
+    with pytest.raises(ValueError, match='contiguous'):
+        mask_ops.attention_mask(logits.transpose(2, 3), (4, 4))
+    with pytest.raises(RuntimeError, match='launch failed'):
+        mask_ops.attention_mask(logits, (500, 500))
+    assert trace.counter(mask_ops.LAUNCHES) == launches

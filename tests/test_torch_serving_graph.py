@@ -3,7 +3,9 @@
 replayed requests give the eager requests' bits, whole and micro-batched;
 the graph counters and the kernels' launch counters advance as the module's
 docstring says, and a profiled replay runs the captured kernels; under a
-profiler a request runs eagerly.
+profiler a request runs eagerly. At Swin-L's serving shape, the decoder's
+attention-mask kernel launches once a decoder layer in every request and
+never in the replayed encoder.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 that has only PyTorch and the CUDA toolkit:
@@ -20,7 +22,9 @@ import torch
 from weed_instance_segmentation_tpu_torch.engine import trace
 from weed_instance_segmentation_tpu_torch.engine.export import ServingModule, make_serving_fn
 from weed_instance_segmentation_tpu_torch.engine.model_utils import build_model
-from weed_instance_segmentation_tpu_torch.ops import deformable_attention, window_attention
+from weed_instance_segmentation_tpu_torch.ops import (
+    attention_mask, deformable_attention, window_attention,
+)
 from weed_instance_segmentation_tpu_torch.ops.cuda_build import captured
 
 IN_HW, OUT_HW = (32, 48), (64, 96)
@@ -200,3 +204,36 @@ def test_under_a_profiler_a_request_runs_eagerly(cuda_device):
     _assert_same_bits(got, want)
     _assert_same_bits(serve(raw), want)
     assert trace.counter('serve.graph.replays') == replays + 1
+
+
+@pytest.mark.cuda
+def test_attention_mask_launches_ten_a_swin_l_request_and_none_in_a_replay(cuda_device):
+    """Swin-L at 800², batch 4, bf16: an eager request and each request
+    through the serving function (the first capturing) launch the
+    attention-mask kernel once for each of the 10 masks the decoder
+    predicts; the capture records none, and a replay of the encoder graph
+    launches none."""
+    model = build_model('swin-large', num_labels=5, dtype=torch.bfloat16, device=cuda_device,
+                        seed=0)
+    layers = model.config.decoder_layers
+    assert layers == 10
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    raw = torch.randint(0, 256, (4, 1024, 1024, 3), generator=g, device=cuda_device,
+                        dtype=torch.uint8)
+    launches, held = (trace.counter(attention_mask.LAUNCHES),
+                      trace.counter(captured(attention_mask.LAUNCHES)))
+    with torch.inference_mode():
+        ServingModule(model, out_hw=(800, 800), emit_masks=False)(raw)
+    assert trace.counter(attention_mask.LAUNCHES) - launches == layers
+    serve = make_serving_fn(model, out_hw=(800, 800), micro_batch=4, emit_masks=False)
+    for _ in range(2):
+        launches = trace.counter(attention_mask.LAUNCHES)
+        serve(raw)
+        torch.cuda.synchronize()
+        assert trace.counter(attention_mask.LAUNCHES) - launches == layers
+    assert trace.counter(captured(attention_mask.LAUNCHES)) == held
+    (replay,) = serve.graphs.values()
+    launches = trace.counter(attention_mask.LAUNCHES)
+    replay(raw)
+    torch.cuda.synchronize()
+    assert trace.counter(attention_mask.LAUNCHES) == launches

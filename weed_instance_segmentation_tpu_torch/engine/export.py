@@ -15,7 +15,7 @@ its two halves)::
 :func:`export_serving` saves that pipeline as one ``torch.export`` program
 with the weights inside; :func:`load_serving` loads it with no model code,
 config or checkpoint: it needs torch and this package's ``ops`` modules,
-which register the four kernels as operators (``torch.ops.wistpu.*``) and
+which register the five kernels as operators (``torch.ops.wistpu.*``) and
 build them at first use. The saved graph calls those operators, so a loaded
 program launches the same kernels as the live function, and their launch
 counters count them. Shapes are static (one artifact per batch and
@@ -275,7 +275,8 @@ def load_serving(out_dir: str) -> tuple[Callable, dict]:
     modules (which register the kernels' operators), no model code, config
     or checkpoint. Raises where the artifact's device is not available."""
     from weed_instance_segmentation_tpu_torch.ops import (  # noqa: F401  (registers the ops)
-        deformable_attention, masked_attention, postprocess_kernel, window_attention,
+        attention_mask, deformable_attention, masked_attention, postprocess_kernel,
+        window_attention,
     )
 
     with open(os.path.join(out_dir, MANIFEST_NAME)) as f:

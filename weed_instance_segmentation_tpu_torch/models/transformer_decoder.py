@@ -7,7 +7,9 @@ Port of ``weed_instance_segmentation_tpu/models/transformer_decoder.py``:
 - the attention mask comes from the previous layer's mask prediction
   (sigmoid < 0.5 → masked), with the all-masked-row escape;
 - the mask predictor is a 3-layer MLP mask embedder + einsum with the pixel
-  embeddings, bilinearly resized to the next level's size.
+  embeddings, bilinearly resized to the next level's size
+  (``ops/attention_mask.py``: one kernel on the card, the plain chain on the
+  CPU).
 
 The masked cross-attention goes through ``ops/masked_attention.py``: the CUDA
 kernel (port of the Pallas kernel ``tools/ab_masked_attn.py``) on the card,
@@ -24,9 +26,9 @@ from torch import nn
 
 from weed_instance_segmentation_tpu_torch.models.configuration import Mask2FormerConfig
 from weed_instance_segmentation_tpu_torch.models.position_embedding import sine_position_embedding
+from weed_instance_segmentation_tpu_torch.ops.attention_mask import attention_mask
 from weed_instance_segmentation_tpu_torch.ops.constants import device_constant
 from weed_instance_segmentation_tpu_torch.ops.masked_attention import masked_attention
-from weed_instance_segmentation_tpu_torch.ops.resize import interpolate_bilinear
 
 
 class MultiheadAttention(nn.Module):
@@ -79,13 +81,7 @@ class MaskPredictor(nn.Module):
         x = F.relu(self.mask_embedder_1(x))
         x = self.mask_embedder_2(x)
         mask_logits = torch.einsum('bqc,bhwc->bqhw', x, pixel_embeddings)
-
-        attn = interpolate_bilinear(mask_logits, attn_target_hw)
-        masked = torch.sigmoid(attn).flatten(2) < 0.5  # True = blocked (HF:2021)
-        # all-masked-row escape: a row with every position masked attends
-        # everywhere (HF:1880-1882)
-        masked = masked & ~masked.all(dim=-1, keepdim=True)
-        return mask_logits, masked[:, None]  # broadcast over heads
+        return mask_logits, attention_mask(mask_logits.detach(), attn_target_hw)
 
 
 class DecoderLayer(nn.Module):
